@@ -1,0 +1,15 @@
+"""Device compute of the port: ingest, the training step and its kernels."""
+
+from .ingest import SymbolStream, make_stream, pad_stream
+from .train_step import TrainState, init_state, train_batch
+from .trainer import Trainer
+
+__all__ = [
+    "SymbolStream",
+    "TrainState",
+    "Trainer",
+    "init_state",
+    "make_stream",
+    "pad_stream",
+    "train_batch",
+]

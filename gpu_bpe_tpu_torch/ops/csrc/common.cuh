@@ -1,0 +1,65 @@
+// Shared definitions of the training kernels (sm_90a, plain C entry points).
+//
+// Storage conventions, fixed by the Python wrappers in ops/kernels.py:
+//   * symbols and weights are int32 arrays; a symbol is tok | WS_BIT with
+//     tok < 2^16, read here as uint32_t;
+//   * pair ids, window slots, counts and every scalar are int64 tensors on
+//     the device; pair ids hold the unsigned 32-bit value and are cast to
+//     uint32_t here, so the winner order is the unsigned one;
+//   * counts, probe counts and histogram masses are summed in 64-bit
+//     integers and never pass through floats or tensor cores.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace bpe {
+
+constexpr uint32_t TOKEN_MASK = 0xFFFFu;
+constexpr uint32_t WS_BIT = 0x10000u;
+constexpr int W_SLOTS = 256;   // candidate window: K_CANDIDATES + S_CREATED
+constexpr int N_PROBES = 64;   // fused probe-pair slots
+constexpr int NBINS = 256;     // 16 x 16 created-pair hash bins
+constexpr int TILE = 1024;     // stream elements per block (one per thread)
+
+// (tok * 2654435761) >> 16 & 255 in wrapping u32 arithmetic: the bin of a
+// 16-bit token (row = h >> 4, column = h & 15 of the [16, 16] histogram).
+__device__ __forceinline__ int bin_of(uint32_t tok) {
+    return (int)(((tok * 2654435761u) >> 16) & (uint32_t)(NBINS - 1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(long long v) { return (uint32_t)(unsigned long long)v; }
+
+// Exclusive prefix sum of one int per thread over a block of blockDim.x
+// (a multiple of 32, at most 1024) threads. Returns the block total in
+// *total. Uses shared memory of 32 ints.
+__device__ __forceinline__ int block_exclusive_scan(int x, int* total) {
+    __shared__ int warp_sums[32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int inc = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+        if (lane >= d) inc += y;
+    }
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+        int s = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
+            if (lane >= d) s += y;
+        }
+        warp_sums[lane] = s;  // inclusive over warps
+    }
+    __syncthreads();
+    const int before = warp == 0 ? 0 : warp_sums[warp - 1];
+    *total = warp_sums[nwarps - 1];
+    __syncthreads();  // warp_sums may be reused by the next call
+    return before + inc - x;
+}
+
+}  // namespace bpe

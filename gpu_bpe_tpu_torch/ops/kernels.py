@@ -1,0 +1,393 @@
+"""The training kernels: CUDA wrappers, their plain PyTorch versions and
+launch counters (counterpart of ``gpu_bpe_tpu/ops/pallas_kernels.py``).
+
+Each public wrapper takes the plain version for tensors that lie on the
+CPU, and launches its hand-written CUDA kernel (``ops/csrc``) for CUDA
+tensors, raising if the build or the launch fails; there is no fallback.
+``LAUNCHES`` counts kernel launches per wrapper.
+
+Storage conventions (shared with the CUDA sources):
+
+* symbols and weights: int32 ``[cap]``; a symbol is ``tok | WS_BIT``;
+* pair ids, window slots, counts, probe counts, the merge log and every
+  scalar: int64, a pair id holding its unsigned 32-bit value, so every
+  comparison of pair ids is in unsigned order;
+* scalars are 0-d int64 tensors on the stream's device (Python ints are
+  accepted and copied there), so the three launches of a merge need no
+  host read between them.
+
+Outputs differ from the Pallas functions only where the Pallas ones are
+approximations or layout artefacts: ``bins`` hold the exact integer mass
+rounded to f32 once (the Pallas bins are one-hot matmul sums), and a
+``samp`` token is the smallest token among the positions of the heaviest
+weight over the whole stream (the Pallas kernel keeps the smallest token of
+the earliest 32K block that reaches that weight). A ``samp`` token is only
+meaningful when its weight is > 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+
+import torch
+
+from ..constants import TOKEN_MASK, WORD_START_BIT
+
+W_SLOTS = 256  # candidate window: K_CANDIDATES + S_CREATED
+N_PROBES = 64  # fused probe-pair slots
+TRACK_SIDE = 16  # created-pair histograms are TRACK_SIDE x TRACK_SIDE bins
+N_SCALARS = 18  # window_post's packed scalars before probes and pcnt
+INVALID = 0xFFFFFFFF
+I32_MAX = 2**31 - 1
+
+LAUNCHES: Counter = Counter()  # kernel launches per wrapper; clear() to reset
+
+
+def _scalar(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64).reshape(())
+    return torch.tensor(int(x), dtype=torch.int64, device=device)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``; the caller launches inside
+    ``torch.cuda.device(device)`` so that the kernel runs on that card."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _require(t: torch.Tensor, dtype, shape=None, name="tensor") -> None:
+    if t.dtype != dtype or not t.is_contiguous() or (shape is not None and tuple(t.shape) != shape):
+        raise ValueError(f"{name}: want contiguous {dtype} {shape or ''}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return False
+
+
+def bin_index(tok: torch.Tensor) -> torch.Tensor:
+    """Hash bin of 16-bit tokens: (tok * 2654435761) >> 16 & 255 in
+    wrapping u32 arithmetic (int64 masked before the shift)."""
+    return (((tok * 2654435761) & 0xFFFFFFFF) >> 16) & (TRACK_SIDE * TRACK_SIDE - 1)
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Reinterpret the low 32 bits of int64 values as signed int32 (kept in int64)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x)
+
+
+# ─────────────────────────── merge_compact_tracked ───────────────────────────
+
+
+def window_probes(cand: torch.Tensor, counts: torch.Tensor, pair: torch.Tensor):
+    """Affected window slots of merging ``pair`` (live slots whose pair ends
+    in a or starts with b, excluding the pair itself) and the probe list:
+    the first ``N_PROBES`` affected pairs in window order when they fit, else
+    none; sentinel pair 1 fills the unused slots. Returns (probes, n_aff)."""
+    a, b = pair >> 16, pair & TOKEN_MASK
+    aff = (counts >= 0) & (((cand & TOKEN_MASK) == a) | ((cand >> 16) == b)) & (cand != pair)
+    n_aff = aff.sum()
+    picked = cand[aff][:N_PROBES]
+    probes = torch.ones(N_PROBES, dtype=torch.int64, device=cand.device)
+    if int(n_aff) <= N_PROBES:
+        probes[: picked.shape[0]] = picked
+    return probes, n_aff
+
+
+def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts):
+    """Plain PyTorch version of ``merge_compact_tracked`` (same outputs)."""
+    dev = symbols.device
+    cap = symbols.shape[0]
+    n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
+    nn = min(int(n), cap)
+    pair_i = int(pair)
+    a, b = pair_i >> 16, pair_i & TOKEN_MASK
+    s = symbols.to(torch.int64)
+    pos = torch.arange(cap, device=dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    prev = torch.cat([zero, s[:-1]])
+    nxt = torch.cat([s[1:], zero])
+    tok, ws = s & TOKEN_MASK, s & WORD_START_BIT
+    site = (pos < nn - 1) & (tok == a) & ((nxt & TOKEN_MASK) == b) & ((nxt & WORD_START_BIT) == 0)
+    removed = (pos < nn) & ((prev & TOKEN_MASK) == a) & (tok == b) & (ws == 0)
+    if pair_i == 0:  # pair 0 merges nothing
+        site, removed = torch.zeros_like(site), torch.zeros_like(removed)
+    vals = torch.where(site, (new_id & 0xFFFFFFFF) | ws, s)
+    keep = (pos < nn) & ~removed
+    n_new = int(keep.sum())
+    sym2 = torch.zeros(cap, dtype=torch.int32, device=dev)
+    w2 = torch.zeros(cap, dtype=torch.int32, device=dev)
+    sym2[:n_new] = vals[keep].to(torch.int32)
+    w2[:n_new] = weights[keep]
+
+    # created-pair tracking over adjacent pairs of the compacted stream
+    # (and the last symbol with the zero pad when the capacity has room)
+    lim = min(n_new, cap - 1)
+    u, v = sym2[:lim].to(torch.int64), sym2[1 : lim + 1].to(torch.int64)
+    uw, vw = w2[:lim].to(torch.int64), w2[1 : lim + 1].to(torch.int64)
+    ut, vt = u & TOKEN_MASK, v & TOKEN_MASK
+    v_ok = (v & WORD_START_BIT) == 0
+    z16 = int(new_id) & TOKEN_MASK
+    lm = v_ok & (vt == z16) & (vw > 0)
+    rm = v_ok & (ut == z16) & (uw > 0)
+    nb = TRACK_SIDE * TRACK_SIDE
+    acc_l = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(0, bin_index(ut[lm]), vw[lm])
+    acc_r = torch.zeros(nb, dtype=torch.int64, device=dev).index_add_(0, bin_index(vt[rm]), uw[rm])
+    any_l, any_r = bool(lm.any()), bool(rm.any())
+
+    def sample(mask, wts, toks, any_this, any_other):
+        if not any_this:
+            return (0 if any_other else -1), 0
+        wmax = int(wts[mask].max())
+        return wmax, int(toks[mask & (wts == wmax)].min())
+
+    sl = sample(lm, vw, ut, any_l, any_r)
+    sr = sample(rm, uw, vt, any_r, any_l)
+    samp = torch.tensor([sl[0], sl[1], sr[0], sr[1]], dtype=torch.int64, device=dev)
+
+    probes, n_aff = window_probes(cand, counts, pair)
+    npe = int(n_aff) if int(n_aff) <= N_PROBES else 0
+    pcnt = torch.zeros(N_PROBES, dtype=torch.int64, device=dev)
+    pairs = (ut << 16) | vt
+    for k in range(npe):
+        pcnt[k] = uw[v_ok & (pairs == probes[k])].sum()
+
+    bins_l = acc_l.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
+    bins_r = acc_r.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
+    n_new_t = torch.tensor(n_new, dtype=torch.int64, device=dev)
+    return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt, probes, n_aff.to(torch.int64)
+
+
+def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
+    """One merge ``pair`` -> ``new_id`` with stable compaction, created-pair
+    tracking and window-mode probe counts.
+
+    ``symbols``/``weights`` are int32 ``[cap]``, live in ``[0, n)``; what
+    lies past ``n`` is never matched. ``cand``/``counts`` are the int64
+    ``[W_SLOTS]`` candidate window. Returns ``(sym2, w2, n_new, bins_l,
+    bins_r, samp, pcnt, probes, n_aff)``:
+
+    * ``sym2``/``w2``: the merged, compacted stream, zero past ``n_new``;
+      a site becomes ``new_id | (sym & WS_BIT)``, the overlap-collapse
+      quirk and the word-start block of the reference rule hold;
+    * ``bins_l``/``bins_r``: f32 ``[16, 16]`` hashed histograms of the
+      created pairs' mass, left pairs (u, Z) keyed by u, right pairs (Z, v)
+      keyed by v, the exact integer mass rounded to f32 once;
+    * ``samp``: int64 ``[4]`` = (max left weight, its token, max right
+      weight, its token); ties on weight go to the smallest token; weight
+      -1 when no created pair exists on either side, 0 when only the other
+      side has one;
+    * ``probes``/``pcnt``/``n_aff``: the affected window slots' count, the
+      probe list (``window_probes``) and each probe's exact post-merge
+      pair-stream count (valid for the first ``n_aff`` slots when
+      ``n_aff <= N_PROBES``; nothing is probed otherwise).
+    """
+    if _on_cpu(symbols, weights, cand, counts):
+        return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
+    from .build import load
+
+    dev = symbols.device
+    cap = symbols.shape[0]
+    _require(symbols, torch.int32, (cap,), "symbols")
+    _require(weights, torch.int32, (cap,), "weights")
+    _require(cand, torch.int64, (W_SLOTS,), "cand")
+    _require(counts, torch.int64, (W_SLOTS,), "counts")
+    n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
+    lib = load()["merge_compact_tracked"]
+    i64 = dict(dtype=torch.int64, device=dev)
+    sym2 = torch.empty(cap, dtype=torch.int32, device=dev)
+    w2 = torch.empty(cap, dtype=torch.int32, device=dev)
+    n_new = torch.empty((), **i64)
+    bins = torch.empty(2 * TRACK_SIDE, TRACK_SIDE, dtype=torch.float32, device=dev)
+    samp = torch.empty(4, **i64)
+    pcnt = torch.empty(N_PROBES, **i64)
+    probes = torch.empty(N_PROBES, **i64)
+    n_aff = torch.empty((), **i64)
+    scratch = torch.empty(int(lib.mc_scratch_words(cap)), **i64)
+    with torch.cuda.device(dev):
+        rc = lib.merge_compact_tracked(
+            _ptr(symbols), _ptr(weights), cap, _ptr(n), _ptr(pair), _ptr(new_id),
+            _ptr(cand), _ptr(counts), _ptr(sym2), _ptr(w2), _ptr(n_new), _ptr(bins),
+            _ptr(samp), _ptr(pcnt), _ptr(probes), _ptr(n_aff), _ptr(scratch), _stream(dev),
+        )
+    _check(rc, "merge_compact_tracked")
+    LAUNCHES["merge_compact_tracked"] += 1
+    return sym2, w2, n_new, bins[:TRACK_SIDE], bins[TRACK_SIDE:], samp, pcnt, probes, n_aff
+
+
+# ─────────────────────────────── count_pairs2 ────────────────────────────────
+
+
+def count_pairs2_plain(symbols, weights, n, pair1, pair2):
+    """Plain PyTorch version of ``count_pairs2``."""
+    dev = symbols.device
+    cap = symbols.shape[0]
+    nn = min(int(_scalar(n, dev)), cap)
+    s = symbols.to(torch.int64)
+    nxt = torch.cat([s[1:], torch.zeros(1, dtype=torch.int64, device=dev)])
+    tok, ntok = s & TOKEN_MASK, nxt & TOKEN_MASK
+    pos = torch.arange(cap, device=dev)
+    valid = (pos < nn - 1) & ((nxt & WORD_START_BIT) == 0) & (tok != 0) & (ntok != 0)
+    pr = torch.where(valid, (tok << 16) | ntok, 0)
+    wm = torch.where(valid, weights.to(torch.int64), 0)
+    p1, p2 = _scalar(pair1, dev), _scalar(pair2, dev)
+    return torch.stack([wm[pr == p1].sum(), wm[pr == p2].sum()])
+
+
+def count_pairs2(symbols, weights, n, pair1, pair2):
+    """Exact pair-stream counts of two pairs: int64 ``[2]``.
+
+    Pair (p, p+1) adds ``weights[p]`` iff p < n-1, the successor lacks the
+    word-start bit and neither token is 0, so pair 0 and pairs with a zero
+    member count 0."""
+    if _on_cpu(symbols, weights):
+        return count_pairs2_plain(symbols, weights, n, pair1, pair2)
+    from .build import load
+
+    dev = symbols.device
+    cap = symbols.shape[0]
+    _require(symbols, torch.int32, (cap,), "symbols")
+    _require(weights, torch.int32, (cap,), "weights")
+    n, pair1, pair2 = (_scalar(x, dev) for x in (n, pair1, pair2))
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = load()["count_pairs2"].count_pairs2(
+            _ptr(symbols), _ptr(weights), cap, _ptr(n), _ptr(pair1), _ptr(pair2), _ptr(out),
+            _stream(dev),
+        )
+    _check(rc, "count_pairs2")
+    LAUNCHES["count_pairs2"] += 1
+    return out
+
+
+# ──────────────────────────────── window_post ────────────────────────────────
+
+_SCALAR_ORDER = (
+    "pair", "count", "next_id", "theta", "ub_new", "fill", "merges_done", "active",
+    "early_stop", "use_probes", "n_aff", "c_l", "c_r", "l_ok", "r_ok", "l_tok", "r_tok",
+    "has_room",
+)
+
+
+def _ceiling(bins: torch.Tensor, tok: int, c: int) -> int:
+    """Created-pair ceiling of one side: subtract the sampled pair's exact
+    count from its bin, then max * (1 + 4e-3) + 4 in f32 (product and sum
+    rounded separately), clamped to i32 max above 2e9."""
+    b2 = bins.reshape(-1).clone()
+    h = int(bin_index(torch.tensor(tok)))
+    b2[h] = b2[h] - torch.tensor(c, dtype=torch.float32, device=b2.device)
+    mx = b2.max() * torch.tensor(1.0 + 4e-3, dtype=torch.float32, device=b2.device)
+    mx = mx + torch.tensor(4.0, dtype=torch.float32, device=b2.device)
+    v = float(mx)
+    return I32_MAX if v > 2e9 else int(v)
+
+
+def window_post_plain(sc, cand, counts, bins_l, bins_r, log):
+    """Plain PyTorch version of the window_post kernel on packed scalars."""
+    dev = cand.device
+    v = dict(zip(_SCALAR_ORDER, (int(x) for x in sc[:N_SCALARS].tolist())))
+    probes = sc[N_SCALARS : N_SCALARS + N_PROBES]
+    pcnt = _to_i32(sc[N_SCALARS + N_PROBES :])
+    pair, md, fill = v["pair"], v["merges_done"], v["fill"]
+    active, has_room = v["active"] != 0, v["has_room"] != 0
+    live = counts >= 0
+    a, b = pair >> 16, pair & TOKEN_MASK
+    aff = live & (((cand & TOKEN_MASK) == a) | ((cand >> 16) == b)) & (cand != pair)
+    rec = torch.zeros_like(counts)
+    for k in range(min(v["n_aff"], N_PROBES)):
+        rec = torch.maximum(rec, torch.where(cand == probes[k], pcnt[k], 0))
+    cnt = torch.where(aff & (v["use_probes"] != 0), rec, counts)
+    cnt = torch.where(live & (cand == pair), 0, cnt)
+
+    z16 = v["next_id"] & TOKEN_MASK
+    l_ok, r_ok = v["l_ok"] != 0, v["r_ok"] != 0
+    l_pair = ((v["l_tok"] << 16) | z16) & 0xFFFFFFFF if l_ok else INVALID
+    r_pair = ((z16 << 16) | v["r_tok"]) & 0xFFFFFFFF if r_ok else INVALID
+    cand2 = cand.clone()
+    if has_room:
+        cand2[fill], cand2[fill + 1] = l_pair, r_pair
+        cnt[fill] = v["c_l"] if l_ok else -1
+        cnt[fill + 1] = v["c_r"] if r_ok else -1
+
+    ub_merge = max(_ceiling(bins_l, v["l_tok"], v["c_l"]), _ceiling(bins_r, v["r_tok"], v["c_r"]))
+    ub_new2 = max(v["ub_new"], ub_merge if active else 0)
+
+    log2 = log.clone()
+    row = (pair, v["next_id"], v["count"] & 0xFFFFFFFF)
+    for j, val in enumerate(row):
+        if 3 * md + j < log2.shape[0]:
+            log2[3 * md + j] = val
+
+    adv = 1 if active else 0
+    m2 = int(cnt.max())
+    pend_pair = int(cand2[cnt == m2].min())
+    cert = m2 > v["theta"] and m2 > ub_new2 and m2 >= 2
+    sout = torch.tensor(
+        [md + adv, fill + 2 if has_room else fill, int(v["early_stop"] != 0 or not active),
+         ub_new2, m2, int(cert), (v["next_id"] + adv) & 0xFFFFFFFF, pend_pair],
+        dtype=torch.int64, device=dev,
+    )
+    return cand2, cnt, log2, sout
+
+
+def pack_scalars(device, *, probes, pcnt, **scalars) -> torch.Tensor:
+    """window_post's packed scalar vector: int64 [N_SCALARS + 2 * N_PROBES]
+    = the scalars in ``_SCALAR_ORDER``, the probe pairs, the probe counts."""
+    if set(scalars) != set(_SCALAR_ORDER):
+        raise TypeError(f"window_post scalars: want {sorted(_SCALAR_ORDER)}, got {sorted(scalars)}")
+    return torch.cat([
+        torch.stack([_scalar(scalars[k], device) for k in _SCALAR_ORDER]),
+        probes.to(device=device, dtype=torch.int64).reshape(N_PROBES),
+        pcnt.to(device=device, dtype=torch.int64).reshape(N_PROBES),
+    ])
+
+
+def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
+    """Post-merge window update (counterpart of the Pallas ``window_post``).
+
+    ``log`` is the int64 merge log, flat ``[BATCH_MERGES * 3]``. The keyword
+    scalars are those of ``_SCALAR_ORDER`` (0-d tensors or ints; ``count``
+    is the merged pair's count, ``has_room`` already includes the active
+    gate). Returns ``(cand2, counts2, log2, sout)`` with ``sout`` int64
+    ``[8]`` = (merges_done2, fill2, early2, ub_new2, pend_count, pend_cert,
+    next_id2, pend_pair), pair ids and next_id as unsigned values.
+    """
+    dev = cand.device
+    sc = pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
+    if _on_cpu(cand, counts, bins_l, bins_r, log):
+        return window_post_plain(sc, cand, counts, bins_l, bins_r, log)
+    from .build import load
+
+    _require(cand, torch.int64, (W_SLOTS,), "cand")
+    _require(counts, torch.int64, (W_SLOTS,), "counts")
+    _require(bins_l, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_l")
+    _require(bins_r, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_r")
+    _require(log, torch.int64, None, "log")
+    cand2, counts2, log2 = torch.empty_like(cand), torch.empty_like(counts), torch.empty_like(log)
+    sout = torch.empty(8, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = load()["window_post"].window_post(
+            _ptr(sc), _ptr(cand), _ptr(counts), _ptr(bins_l), _ptr(bins_r), _ptr(log),
+            log.shape[0], _ptr(cand2), _ptr(counts2), _ptr(log2), _ptr(sout), _stream(dev),
+        )
+    _check(rc, "window_post")
+    LAUNCHES["window_post"] += 1
+    return cand2, counts2, log2, sout

@@ -1,0 +1,318 @@
+"""Device-resident BPE training step (single device, fused-window structure).
+
+Counterpart of the single-chip fused structure of
+``gpu_bpe_tpu/ops/train_step.py``. The winner of each merge is the global
+weighted argmax pair with the reference tie-break (count desc, pair id asc,
+unsigned). It is certified from a 256-slot candidate window whose exact
+counts are maintained across merges: a merge (a,b) -> Z can only change
+counts of pairs ending in a, starting with b, equal to (a,b) or containing
+Z (proof in the reference's ``_post_counts``), so each merge recounts just
+that affected subset inside the merge kernel. When the certificate fails,
+``_ensure_pending`` runs a full sort-based recount. The merge list is
+bitwise equal to recounting before every merge (``force_recount=True``).
+
+Each certified merge launches the three kernels of ``ops/kernels.py``:
+``merge_compact_tracked`` (merge, compaction, created-pair tracking, probe
+counts), ``count_pairs2`` (exact counts of the two sampled created pairs)
+and ``window_post`` (window upkeep, next winner, certificate). Between them
+everything stays on the device; the Python loop reads one small vector per
+merge to decide whether to go on (a second read only in the rare merge that
+affects more than ``N_PROBES`` window slots).
+
+There is no ``jit``: data-dependent loops are Python loops around kernel
+launches. Every tensor of ``TrainState`` lives on one device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from ..constants import BATCH_MERGES, TOKEN_MASK, WORD_START_BIT
+from .kernels import (
+    INVALID,
+    N_PROBES,
+    W_SLOTS,
+    count_pairs2,
+    merge_compact_tracked,
+    window_post,
+)
+
+# Lazy-candidate window: tracked top pairs from the last recount plus
+# append-only scratch slots for created pairs sampled since (2 per merge).
+K_CANDIDATES = 128
+S_CREATED = 128
+assert K_CANDIDATES + S_CREATED == W_SLOTS
+_NO_EXCL = 0x10000  # 17-bit sentinel: matches no 16-bit token
+# Capacity below which the mid-batch collapse stop is disabled.
+_MIN_SHRINK_CAP = 4096
+
+
+@dataclass
+class TrainState:
+    """Device-side iteration state (the reference's IterState). Scalars are
+    0-d int64 tensors (flags 0/1); pair ids hold unsigned 32-bit values."""
+
+    symbols: torch.Tensor  # int32 [cap] — tok | word-start bit; 0 past n
+    weights: torch.Tensor  # int32 [cap] — word frequency per position
+    n: torch.Tensor  # live symbol count
+    next_id: torch.Tensor  # next token id to assign
+    early_stop: torch.Tensor
+    merges_done: torch.Tensor  # merges done this batch
+    merge_log: torch.Tensor  # int64 [BATCH_MERGES * 3] — (pair, new_id, count) rows
+    cand: torch.Tensor  # int64 [W_SLOTS] tracked pairs (INVALID when dead)
+    cand_counts: torch.Tensor  # int64 [W_SLOTS] EXACT live counts, -1 when dead
+    theta: torch.Tensor  # ceiling on every untracked pair present at the last recount
+    ub_new: torch.Tensor  # ceiling on pairs created since the last recount
+    recounts: torch.Tensor  # full recounts performed (diagnostics)
+    fill: torch.Tensor  # next free created-pair scratch slot
+    duals: torch.Tensor  # multi-merge fires: always 0 here (kept for the summary)
+    pend_pair: torch.Tensor  # next winner, computed by the previous window_post
+    pend_count: torch.Tensor
+    pend_cert: torch.Tensor  # 0 forces a full recount before the next merge
+
+
+def _i64(x, device) -> torch.Tensor:
+    return torch.tensor(int(x), dtype=torch.int64, device=device)
+
+
+def init_state(symbols, weights, n: int, next_id: int, device="cuda") -> TrainState:
+    """State for a padded stream (``symbols`` uint32 / ``weights`` int32 numpy
+    arrays or tensors of the capacity's length, zero past ``n``)."""
+    dev = torch.device(device)
+    sym = torch.as_tensor(np.asarray(symbols, dtype=np.uint32).astype(np.int32)).to(dev)
+    w = torch.as_tensor(np.asarray(weights, dtype=np.int32)).to(dev)
+    return TrainState(
+        symbols=sym,
+        weights=w,
+        n=_i64(n, dev),
+        next_id=_i64(next_id, dev),
+        early_stop=_i64(0, dev),
+        merges_done=_i64(0, dev),
+        merge_log=torch.zeros(BATCH_MERGES * 3, dtype=torch.int64, device=dev),
+        cand=torch.full((W_SLOTS,), INVALID, dtype=torch.int64, device=dev),
+        cand_counts=torch.full((W_SLOTS,), -1, dtype=torch.int64, device=dev),
+        theta=_i64(2**31 - 1, dev),  # forces a recount first
+        ub_new=_i64(0, dev),
+        recounts=_i64(0, dev),
+        fill=_i64(K_CANDIDATES, dev),
+        duals=_i64(0, dev),
+        pend_pair=_i64(0, dev),
+        pend_count=_i64(-1, dev),
+        pend_cert=_i64(0, dev),
+    )
+
+
+def _pair_ids(symbols: torch.Tensor, n):
+    """Packed pair ids (int64, 0 where invalid) of a hole-free stream and
+    their validity: pair (p, p+1) counts iff p < n-1, the successor lacks
+    the word-start bit and neither token is 0 (train.wgsl:393-399)."""
+    s = symbols.to(torch.int64)
+    nxt = torch.cat([s[1:], s.new_zeros(1)])
+    tok, ntok = s & TOKEN_MASK, nxt & TOKEN_MASK
+    iota = torch.arange(s.shape[0], device=s.device)
+    valid = (iota < n - 1) & ((nxt & WORD_START_BIT) == 0) & (tok != 0) & (ntok != 0)
+    return torch.where(valid, (tok << 16) | ntok, 0), valid
+
+
+def _run_totals(sp: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """Per-run weight totals of a sorted pair stream, placed at run ends (0
+    elsewhere and for the invalid pair id 0). The int64 prefix sum gives
+    each run's exact mass; it is wrapped to i32 as the reference's u32
+    difference cast is, so results agree at the envelope's edge."""
+    m = sp.shape[0]
+    is_end = torch.ones(m, dtype=torch.bool, device=sp.device)
+    is_end[:-1] = sp[:-1] != sp[1:]
+    csum = torch.cumsum(sw, 0)
+    iota = torch.arange(1, m + 1, device=sp.device)
+    end_pos1 = torch.where(is_end, iota, 0)  # 1-based end positions
+    prev_end1 = torch.cat([end_pos1.new_zeros(1), torch.cummax(end_pos1, 0).values[:-1]])
+    prev_csum = torch.where(prev_end1 > 0, csum[(prev_end1 - 1).clamp(min=0)], 0)
+    run = (csum - prev_csum) & 0xFFFFFFFF
+    run = torch.where(run >= 2**31, run - 2**32, run)
+    return torch.where(is_end & (sp != 0), run, 0)
+
+
+def _pick_window(sp: torch.Tensor, run_total: torch.Tensor):
+    """Winner + fresh candidate window + theta from a sorted pair stream
+    with per-run totals at run ends. Candidate picks use an exact
+    ``topk``; any pick is sound because theta is the EXACT max count over
+    the untracked pairs."""
+    bc = run_total.max()
+    bp = torch.where((run_total == bc) & (sp != 0), sp, INVALID).min()
+    bp = torch.where(bc > 0, bp, 0)
+    picked, ai = torch.topk(run_total, K_CANDIDATES)
+    # a pick with run_total == 0 is not a run end (fewer than K distinct
+    # pairs): its sp is some run's interior — leave the slot dead
+    ok = picked > 0
+    cand = torch.where(ok, sp[ai], INVALID)
+    counts = torch.where(ok, picked, -1)
+    cand[0], counts[0] = bp, bc
+    theta = torch.where(torch.isin(sp, cand), 0, run_total).max()
+    cand = torch.cat([cand, cand.new_full((S_CREATED,), INVALID)])
+    counts = torch.cat([counts, counts.new_full((S_CREATED,), -1)])
+    return bp, bc, cand, counts, theta
+
+
+def _full_recount_impl(symbols: torch.Tensor, weights: torch.Tensor, n):
+    """Exact full recount (monolithic sort at every capacity):
+    (best_pair, count, cand, counts, theta)."""
+    pair, valid = _pair_ids(symbols, n)
+    w = torch.where(valid, weights.to(torch.int64), 0)
+    sp, order = torch.sort(pair)
+    return _pick_window(sp, _run_totals(sp, w[order]))
+
+
+def _ensure_pending(st: TrainState, certified: bool) -> TrainState:
+    """Refresh the pending winner with a full recount unless the carried
+    certificate holds (``certified`` is the host's copy of ``pend_cert``)."""
+    if certified:
+        return st
+    bp, bc, cand, counts, theta = _full_recount_impl(st.symbols, st.weights, st.n)
+    dev = st.n.device
+    return replace(
+        st, pend_pair=bp, pend_count=bc, cand=cand, cand_counts=counts, theta=theta,
+        ub_new=_i64(0, dev), fill=_i64(K_CANDIDATES, dev), pend_cert=_i64(1, dev),
+        recounts=st.recounts + 1,
+    )
+
+
+def _post_counts(cand, counts, merged_pair, l_slot, r_slot, sym2, w2, n2):
+    """Dense window recount on the post-merge stream, for the rare merge
+    that affects more than ``N_PROBES`` slots: exact counts of every window
+    pair and of the two sampled created pairs (sentinel 1 counts 0).
+    ``searchsorted`` into the sorted window plus an int64 scatter-add keeps
+    it O(cap log W) in time and O(cap) in memory."""
+    pair2, valid = _pair_ids(sym2, n2)
+    w2m = torch.where(valid, w2.to(torch.int64), 0)
+    lst = torch.cat([cand, l_slot.reshape(1), r_slot.reshape(1)])
+    slst = torch.sort(lst).values
+    idx = torch.searchsorted(slst, pair2).clamp_(max=slst.shape[0] - 1)
+    hit = slst[idx] == pair2
+    sums = torch.zeros_like(slst).index_add_(0, idx, torch.where(hit, w2m, 0))
+    cnt = sums[torch.searchsorted(slst, lst)]
+    live = counts >= 0
+    counts2 = torch.where(live, cnt[:W_SLOTS], counts)
+    counts2 = torch.where(live & (cand == merged_pair), 0, counts2)
+    return counts2, cnt[W_SLOTS], cnt[W_SLOTS + 1]
+
+
+def _gate(st: TrainState):
+    """(active, effective pair, has_room) of the next merge. A stop (count
+    < 2 or ids exhausted) runs the kernels once with the no-op pair 0 and
+    every state change gated off."""
+    active = (st.pend_count >= 2) & (st.next_id <= TOKEN_MASK)
+    pair_eff = torch.where(active, st.pend_pair, 0)
+    has_room = (st.fill <= W_SLOTS - 2) & active
+    return active, pair_eff, has_room
+
+
+def _sampled_pairs(st: TrainState, samp: torch.Tensor, has_room: torch.Tensor) -> dict:
+    """The two sampled created pairs of a merge: their window_post flags and
+    tokens, and their slots for ``count_pairs2`` (sentinel pair 1 when not
+    sampled). Token-0 guard: a pair with a zero member is never counted by
+    the pair stream, so it is left unsampled (its mass stays in the
+    ceiling)."""
+    z16 = st.next_id & TOKEN_MASK
+    l_ok = has_room & (samp[0] > 0) & (samp[1] != 0)
+    r_ok = has_room & (samp[2] > 0) & (samp[3] != 0)
+    l_tok = torch.where(l_ok, samp[1], _NO_EXCL)
+    r_tok = torch.where(r_ok, samp[3], _NO_EXCL)
+    return dict(
+        l_ok=l_ok, r_ok=r_ok, l_tok=l_tok, r_tok=r_tok,
+        l_slot=torch.where(l_ok, (l_tok << 16) | z16, 1),
+        r_slot=torch.where(r_ok, (z16 << 16) | r_tok, 1),
+    )
+
+
+def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
+    """One merge over the already-certified pending winner.
+
+    Returns ``(state, host)`` where ``host`` is the one small vector read
+    back per merge, as Python ints: (merges_done, fill, early_stop, ub_new,
+    pend_count, pend_cert, next_id, pend_pair, n, n_aff)."""
+    active, pair_eff, has_room = _gate(st)
+    sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff = merge_compact_tracked(
+        st.symbols, st.weights, st.n, pair_eff, st.next_id, st.cand, st.cand_counts,
+    )
+    sampled = _sampled_pairs(st, samp, has_room)
+    l_slot, r_slot = sampled.pop("l_slot"), sampled.pop("r_slot")
+    cnt2 = count_pairs2(sym2, w2, n_new, l_slot, r_slot)
+    scalars = dict(
+        pair=pair_eff, count=st.pend_count, next_id=st.next_id, theta=st.theta,
+        ub_new=st.ub_new, fill=st.fill, merges_done=st.merges_done, active=active,
+        early_stop=st.early_stop, use_probes=n_aff <= N_PROBES, n_aff=n_aff,
+        c_l=cnt2[0], c_r=cnt2[1], has_room=has_room, **sampled,
+    )
+    cand2, counts3, log2, sout = window_post(
+        st.cand, st.cand_counts, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
+    )
+    host = torch.cat([sout, n_new.reshape(1), n_aff.reshape(1)]).tolist()
+    if host[9] > N_PROBES:
+        # rare wide merge: nothing was probed; recount the window densely
+        # and redo the window update with those counts
+        counts_sel, c_l, c_r = _post_counts(
+            st.cand, st.cand_counts, pair_eff, l_slot, r_slot, sym2, w2, n_new,
+        )
+        scalars.update(c_l=c_l, c_r=c_r)
+        cand2, counts3, log2, sout = window_post(
+            st.cand, counts_sel, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
+        )
+        host[:8] = sout.tolist()
+    pend_cert = sout[5]
+    if force_recount:  # ground truth: never carry a certificate
+        pend_cert = torch.zeros_like(pend_cert)
+        host[5] = 0
+    st = replace(
+        st, symbols=sym2, weights=w2, n=n_new, next_id=sout[6], early_stop=sout[2],
+        merges_done=sout[0], merge_log=log2, cand=cand2, cand_counts=counts3,
+        ub_new=sout[3], fill=sout[1], pend_pair=sout[7], pend_count=sout[4], pend_cert=pend_cert,
+    )
+    return st, host
+
+
+def train_batch(
+    st: TrainState, batch_merges: int, recount_budget: int | None = None,
+    force_recount: bool = False,
+) -> TrainState:
+    """Run up to ``batch_merges`` merges with early stopping.
+
+    Nested loops as in the reference: the outer loop recounts when the
+    certificate failed (or always, with ``force_recount``), the inner loop
+    runs certified merges. Collapse stop: when the live count falls below
+    half the capacity the batch returns early so the host can shrink onto
+    the next power-of-two rung. ``recount_budget`` caps the full recounts
+    of one batch (the merge list is invariant: it only moves batch ends).
+    """
+    dev = st.n.device
+    st = replace(st, merges_done=_i64(0, dev))
+    cap = st.symbols.shape[0]
+    early, n, cert, recounts = (bool(x) if i in (0, 2) else int(x) for i, x in enumerate(
+        torch.stack([st.early_stop, st.n, st.pend_cert, st.recounts]).tolist()))
+    recounts0 = recounts
+    md = 0
+
+    def go() -> bool:
+        if md >= batch_merges or early:
+            return False
+        return not (cap > _MIN_SHRINK_CAP and n + 32 <= cap // 2 and md > 0)
+
+    while go() and (recount_budget is None or recounts - recounts0 < recount_budget):
+        if force_recount or not cert:
+            st = _ensure_pending(st, certified=False)
+            recounts += 1
+            cert = True
+        while go() and cert:
+            st, host = _one_merge_fused_certified(st, force_recount)
+            md, early, cert, n = host[0], bool(host[2]), bool(host[5]), host[8]
+    return st
+
+
+def _pack_summary(st: TrainState) -> torch.Tensor:
+    """Merge log + batch scalars packed into ONE int64 tensor: the host's
+    whole per-batch readback (duals, merges_done, n, early_stop, recounts
+    at the end)."""
+    scalars = torch.stack([st.duals, st.merges_done, st.n, st.early_stop, st.recounts])
+    return torch.cat([st.merge_log, scalars])

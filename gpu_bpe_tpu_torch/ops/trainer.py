@@ -1,0 +1,164 @@
+"""BPE trainer: host orchestration around the device batch step.
+
+Counterpart of ``gpu_bpe_tpu.ops.trainer.TPUTrainer``: per batch of up to
+``BATCH_MERGES`` merges, one packed merge-log read, CPU vocab
+reconstruction and a progress callback with the reference's schema;
+capacities live on a power-of-two ladder and shrink as the stream compacts.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from ..constants import BATCH_MERGES, TOKEN_MASK
+from ..core.trainer_ref import ProgressFn, TrainingResult
+from ..core.vocab import Vocab
+from .ingest import SymbolStream, make_stream, pad_stream
+from .train_step import _pack_summary, init_state, train_batch
+
+logger = logging.getLogger(__name__)
+
+_MIN_CAP = 2048
+
+# Recount budget per batch: the reference package's rule and constants,
+# kept as they are (they were calibrated for the reference's device, not
+# measured for this port). The budget only moves batch ends, never a merge.
+_DISPATCH_TARGET_S = 12.0
+_RECOUNT_S_PER_ELEM = 35e-9
+
+
+def _recount_budget(cap: int) -> int:
+    return max(4, int(_DISPATCH_TARGET_S / (_RECOUNT_S_PER_ELEM * max(cap, 1))))
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The entry points' device: CUDA unless the caller asks for the CPU;
+    asking for CUDA without a CUDA device raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class Trainer:
+    """Device-resident BPE trainer with batched merge loops.
+
+    ``force_recount=True`` recounts before every merge (the ground truth
+    that the certified window must reproduce bit for bit)."""
+
+    def __init__(
+        self,
+        vocab: Vocab | None = None,
+        batch_merges: int = BATCH_MERGES,
+        device: str | torch.device = "cuda",
+        force_recount: bool = False,
+    ):
+        self.vocab = vocab or Vocab()
+        self.batch_merges = min(batch_merges, BATCH_MERGES)
+        self.device = resolve_device(device)
+        self.force_recount = force_recount
+
+    def train_stream(
+        self,
+        stream: SymbolStream,
+        target_vocab_size: int = 4096,
+        on_progress: ProgressFn | None = None,
+        checkpoint_path: str | None = None,
+    ) -> TrainingResult:
+        if checkpoint_path is not None:
+            raise NotImplementedError("checkpointing is not ported to gpu_bpe_tpu_torch yet")
+        if stream.n == 0:
+            raise ValueError("No symbols to train on — corpus is empty after pre-processing")
+        if stream.total_bytes >= 2**31:
+            logger.info(
+                "corpus mass %d exceeds 2^31: exact while every single "
+                "pair's mass stays < 2^31", stream.total_bytes,
+            )
+
+        merges: list[tuple[int, int, int]] = []
+        merge_counts: list[int] = []
+        padded = pad_stream(stream)
+        state = init_state(
+            padded.symbols, padded.weights, stream.n, self.vocab.next_token_id, self.device,
+        )
+        merges_needed = max(target_vocab_size - self.vocab.size, 0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # upload outside the clock
+        start = time.perf_counter()
+        total_done = 0
+        early_stop = False
+        recounts_total = 0
+        duals_total = 0
+
+        while total_done < merges_needed and not early_stop:
+            batch = min(self.batch_merges, merges_needed - total_done)
+            cap = state.symbols.shape[0]
+            state = train_batch(state, batch, _recount_budget(cap), self.force_recount)
+            packed = _pack_summary(state).cpu().numpy()  # the batch's one log read
+            log = packed[: BATCH_MERGES * 3].reshape(BATCH_MERGES, 3)
+            duals_total, merges_done, n_now, early, recounts_total = (int(x) for x in packed[-5:])
+            early_stop = bool(early)
+
+            for i in range(merges_done):
+                pair, new_id, count = int(log[i, 0]), int(log[i, 1]), int(log[i, 2])
+                a, b = pair >> 16, pair & TOKEN_MASK
+                got = self.vocab.add_merge(a, b)
+                if got != new_id:
+                    raise RuntimeError(f"vocab id drift: {got} != {new_id}")
+                merges.append((a, b, new_id))
+                merge_counts.append(count)
+            total_done += merges_done
+
+            # capacity shrink: every pass of the merge loop costs O(cap)
+            new_cap = cap
+            while new_cap > _MIN_CAP and n_now + 32 <= new_cap // 2:
+                new_cap //= 2
+            if new_cap != cap:  # the stream is hole-free and zero past n
+                state.symbols = state.symbols[:new_cap].clone()
+                state.weights = state.weights[:new_cap].clone()
+
+            elapsed = time.perf_counter() - start
+            if on_progress and merges_done:
+                on_progress({
+                    "mergeIndex": total_done,
+                    "totalMerges": merges_needed,
+                    "mergeString": self.vocab.strings[-1],
+                    "bestCount": merge_counts[-1],
+                    "symbolCount": n_now,
+                    "mergesPerSecond": total_done / max(elapsed, 1e-9),
+                })
+            if early_stop:
+                logger.info("early stop after %d merges", total_done)
+
+        elapsed = time.perf_counter() - start
+        return TrainingResult(
+            vocab=list(self.vocab.entries),
+            vocab_strings=list(self.vocab.strings),
+            vocab_size=self.vocab.size,
+            merges=merges,
+            merge_counts=merge_counts,
+            training_time_s=elapsed,
+            recounts=recounts_total,
+            duals=duals_total,
+        )
+
+    def train(
+        self,
+        data: bytes,
+        word_starts=None,
+        target_vocab_size: int = 4096,
+        dedup: bool = True,
+        on_progress: ProgressFn | None = None,
+    ) -> TrainingResult:
+        """Train from pre-tokenized bytes + word-start mask."""
+        stream = make_stream(data, word_starts, dedup=dedup)
+        if dedup and word_starts is not None:
+            logger.info(
+                "dedup: %d -> %d symbols (%.1fx)", stream.total_bytes, stream.n, stream.dedup_ratio
+            )
+        return self.train_stream(stream, target_vocab_size, on_progress)

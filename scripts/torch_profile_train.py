@@ -1,0 +1,94 @@
+"""Where the time of the port's main path goes on one CUDA card.
+
+    python scripts/torch_profile_train.py [--mb 16] [--merges 1024]
+
+Trains ``gpu_bpe_tpu_torch.Trainer(device="cuda")`` on chip_smoke.py's
+synthetic corpus (bench.py's 16 MB Zipfian text, seed 0) once untraced (for
+merges/s) and once under ``torch.profiler``, and prints JSON lines:
+
+* ``run``: merges, recounts, wall seconds and merges/s of the untraced run;
+* ``device``: device busy time (sum of kernel and copy times on the card)
+  of the traced run against its wall time, and the idle share;
+* ``by_kernel``: device time and calls per kernel name, the largest first;
+* ``host_reads``: device-to-host copies, in total and per merge (each is a
+  host sync of the Python merge loop).
+
+The card's name and power limit are printed first (nvidia-smi).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mb", type=int, default=16)
+    ap.add_argument("--merges", type=int, default=1024)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device available", file=sys.stderr)
+        return 2
+
+    from chip_smoke import synth_corpus
+    from gpu_bpe_tpu_torch import Trainer
+    from gpu_bpe_tpu_torch.ops import build
+    from gpu_bpe_tpu_torch.ops.ingest import make_stream
+    from gpu_bpe_tpu_torch.pretok import byte_word_starts
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    build.load()
+    corpus = synth_corpus(args.mb << 20, seed=0)
+    stream = make_stream(corpus, byte_word_starts(corpus))
+    target = 256 + args.merges
+
+    Trainer(device="cuda").train_stream(stream, target_vocab_size=256 + 64)  # warm-up
+    res = Trainer(device="cuda").train_stream(stream, target_vocab_size=target)
+    print(json.dumps({"phase": "run", "merges": len(res.merges), "recounts": res.recounts,
+                      "seconds": res.training_time_s,
+                      "merges_per_s": len(res.merges) / res.training_time_s}), flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        traced = Trainer(device="cuda").train_stream(stream, target_vocab_size=target)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    dtoh = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name
+        if "DtoH" in name or "Device -> Pageable" in name or "Device -> Pinned" in name:
+            dtoh += 1
+        t = ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total
+        row = by_kernel.setdefault(name, [0.0, 0])
+        row[0] += t / 1e3
+        row[1] += 1
+    busy_ms = sum(v[0] for v in by_kernel.values())
+    print(json.dumps({"phase": "device", "wall_ms": wall * 1e3, "busy_ms": busy_ms,
+                      "idle_share": 1.0 - busy_ms / (wall * 1e3),
+                      "merges": len(traced.merges)}), flush=True)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
+    print(json.dumps({"phase": "by_kernel",
+                      "rows": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]}),
+          flush=True)
+    print(json.dumps({"phase": "host_reads", "dtoh_copies": dtoh,
+                      "per_merge": dtoh / max(len(traced.merges), 1)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,358 @@
+"""The port's three training kernels (plain PyTorch versions, CPU) against
+the Pallas functions of gpu_bpe_tpu in interpret mode.
+
+Tolerance: bitwise on every integer output. The exceptions are the ones
+the port states: ``bins`` (allclose to the Pallas one-hot matmul bins,
+exactly equal to a numpy ``np.add.at`` histogram of the same mass) and the
+``samp`` token on weight ties (the port takes the smallest token among all
+positions of the heaviest weight; the Pallas token must lie in that set).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+from gpu_bpe_tpu.ops import pallas_kernels as pk  # noqa: E402
+from gpu_bpe_tpu_torch.constants import BATCH_MERGES, pack_pair  # noqa: E402
+from gpu_bpe_tpu_torch.ops import kernels as tk  # noqa: E402
+
+BLOCK = pk.BLOCK
+SMALL_CAP = 4096
+BIG_CAP = 50176  # 1.5 x BLOCK streams fit with a zero tail
+
+
+def _stream(rng, n, cap, toks, ws_p=0.15):
+    """Random stream over ``toks`` (word starts with probability ws_p),
+    zero past n."""
+    sym = np.zeros(cap, np.uint32)
+    sym[:n] = rng.choice(np.asarray(toks, np.uint32), size=n)
+    sym[:n] |= (rng.random(n) < ws_p).astype(np.uint32) << 16
+    sym[0] |= 1 << 16
+    w = np.zeros(cap, np.int32)
+    w[:n] = rng.integers(1, 9, size=n)
+    return sym, w
+
+
+def _window(rng, toks, pair, n_aff, n_other=40):
+    """A 256-slot window with exactly ``n_aff`` affected live slots for
+    ``pair`` plus unaffected live slots, the merged pair itself and dead
+    slots."""
+    a, b = pair >> 16, pair & 0xFFFF
+    aff = [pack_pair(t, a) for t in toks] + [pack_pair(b, t) for t in toks]
+    aff = [p for p in dict.fromkeys(aff) if p != pair]
+    assert len(aff) >= n_aff
+    picked = list(rng.permutation(aff)[:n_aff])
+    others = [pack_pair(x, y) for x in toks for y in toks if x != b and y != a]
+    picked += list(rng.permutation(others)[:n_other]) + [pair]
+    cand = np.full(tk.W_SLOTS, 0xFFFFFFFF, np.uint32)
+    counts = np.full(tk.W_SLOTS, -1, np.int32)
+    slots = rng.permutation(tk.W_SLOTS)[: len(picked)]
+    cand[slots] = picked
+    counts[slots] = rng.integers(0, 5000, size=len(picked))
+    return cand, counts
+
+
+def _jax_merge(sym, w, n, pair, new_id, cand, counts):
+    out = pk.merge_compact_tracked(
+        jnp.asarray(sym), jnp.asarray(w), jnp.asarray(n), jnp.uint32(pair), jnp.uint32(new_id),
+        window=(jnp.asarray(cand), jnp.asarray(counts)), interpret=True,
+    )
+    return [np.asarray(o) for o in out]
+
+
+def _port_merge(sym, w, n, pair, new_id, cand, counts):
+    out = tk.merge_compact_tracked(
+        torch.from_numpy(sym.astype(np.int32)), torch.from_numpy(w), n, pair, new_id,
+        torch.from_numpy(cand.astype(np.int64)), torch.from_numpy(counts.astype(np.int64)),
+    )
+    return [o.numpy() for o in out]
+
+
+def _ref_tracking(sym2, w2, n2, new_id):
+    """numpy reference of the created-pair histograms and max weights over
+    the pairs (q, q+1), q < min(n', cap-1) of the compacted stream."""
+    lim = min(n2, len(sym2) - 1)
+    u, v = sym2[:lim].astype(np.int64), sym2[1 : lim + 1].astype(np.int64)
+    uw, vw = w2[:lim].astype(np.int64), w2[1 : lim + 1].astype(np.int64)
+    ut, vt = u & 0xFFFF, v & 0xFFFF
+    ok = (v & 0x10000) == 0
+    z = new_id & 0xFFFF
+    lm, rm = ok & (vt == z) & (vw > 0), ok & (ut == z) & (uw > 0)
+
+    def hist(toks, wts):
+        h = (((toks * 2654435761) & 0xFFFFFFFF) >> 16) & 255
+        out = np.zeros(256, np.int64)
+        np.add.at(out, h, wts)
+        return out.reshape(16, 16)
+
+    return hist(ut[lm], vw[lm]), hist(vt[rm], uw[rm]), (lm, vw, ut), (rm, uw, vt)
+
+
+def _compare_merge(sym, w, n, pair, new_id, cand, counts):
+    j = _jax_merge(sym, w, n, pair, new_id, cand, counts)
+    p = _port_merge(sym, w, n, pair, new_id, cand, counts)
+    sym2, w2 = p[0].astype(np.uint32), p[1]
+    np.testing.assert_array_equal(sym2, j[0])
+    np.testing.assert_array_equal(w2, j[1])
+    n2 = int(p[2])
+    assert n2 == int(j[2])
+    hl, hr, left, right = _ref_tracking(sym2, w2, n2, new_id)
+    np.testing.assert_array_equal(p[3], hl.astype(np.float32))
+    np.testing.assert_array_equal(p[4], hr.astype(np.float32))
+    np.testing.assert_allclose(p[3], j[3], rtol=1e-5)
+    np.testing.assert_allclose(p[4], j[4], rtol=1e-5)
+    samp_p, samp_j = p[5], j[5].astype(np.int64)
+    for side, (mask, wts, toks) in ((0, left), (2, right)):
+        assert samp_p[side] == samp_j[side]
+        if samp_p[side] > 0:
+            at_max = set(toks[mask & (wts == samp_p[side])].tolist())
+            assert samp_p[side + 1] == min(at_max)
+            assert int(samp_j[side + 1]) in at_max
+    n_aff = int(p[8])
+    assert n_aff == int(j[8][0])
+    np.testing.assert_array_equal(p[7], j[7].astype(np.int64) & 0xFFFFFFFF)
+    npe = n_aff if n_aff <= tk.N_PROBES else 0
+    np.testing.assert_array_equal(p[6][:npe], j[6][:npe])
+    return p
+
+
+TOKS_LOW = list(range(1, 7))
+TOKS_HIGH = [0x8000 + 17 * i for i in range(6)] + [0xFFFE]
+
+
+@pytest.mark.parametrize(
+    "seed,n,toks",
+    [(0, 16, TOKS_LOW), (1, 2771, TOKS_LOW), (2, 4000, TOKS_HIGH), (3, 3000, list(range(1, 40)))],
+)
+def test_random_streams(seed, n, toks):
+    rng = np.random.default_rng(seed)
+    sym, w = _stream(rng, n, SMALL_CAP, toks)
+    pair = pack_pair(toks[1], toks[2])
+    cand, counts = _window(rng, toks, pair, n_aff=min(5, 2 * len(toks) - 1))
+    _compare_merge(sym, w, n, pair, 0x9000 if toks is TOKS_HIGH else 300, cand, counts)
+
+
+@pytest.mark.parametrize("n_aff", [0, 1, 9, 16, 17, 40, 64, 65, 75])
+def test_window_probe_tiers(n_aff):
+    """Affected sets in each 16-probe tier and above N_PROBES (nothing
+    probed), with ids >= 0x8000 on both sides of the merged pair."""
+    rng = np.random.default_rng(100 + n_aff)
+    toks = [0x8000 + 3 * i for i in range(45)]
+    sym, w = _stream(rng, 3500, SMALL_CAP, toks, ws_p=0.1)
+    pair = pack_pair(toks[0], toks[1])
+    cand, counts = _window(rng, toks, pair, n_aff)
+    _compare_merge(sym, w, 3500, pair, 0xC123, cand, counts)
+
+
+def test_crosses_block_boundary():
+    """A stream of 1.5 x BLOCK with sites and word starts straddling the
+    32K block edge."""
+    rng = np.random.default_rng(7)
+    n = 3 * BLOCK // 2 + 77
+    toks = [1, 2, 3, 4, 5]
+    sym, w = _stream(rng, n, BIG_CAP, toks)
+    for p in (BLOCK - 2, BLOCK - 1, BLOCK):
+        sym[p], sym[p + 1] = 2, 3
+    sym[BLOCK + 5] = 2
+    sym[BLOCK + 6] = 3 | (1 << 16)  # word start on the b side blocks the site
+    pair = pack_pair(2, 3)
+    cand, counts = _window(rng, toks, pair, n_aff=6)
+    _compare_merge(sym, w, n, pair, 300, cand, counts)
+
+
+def test_overlap_quirk_runs():
+    """Runs of identical symbols under (a,a) collapse (read-all-before-
+    write): "aaa" -> "Z"."""
+    n = 300
+    sym = np.zeros(SMALL_CAP, np.uint32)
+    sym[:n] = 1
+    sym[0] |= 1 << 16
+    sym[100] |= 1 << 16
+    sym[150:153] = 2
+    w = np.zeros(SMALL_CAP, np.int32)
+    w[:n] = 3
+    rng = np.random.default_rng(0)
+    cand, counts = _window(rng, [1, 2], pack_pair(1, 1), n_aff=2)
+    p = _compare_merge(sym, w, n, pack_pair(1, 1), 300, cand, counts)
+    assert int(p[2]) < n
+
+
+def test_word_start_blocks_merge():
+    n = 64
+    sym = np.zeros(SMALL_CAP, np.uint32)
+    sym[:n] = np.tile([2, 3], n // 2)
+    sym[0] |= 1 << 16
+    sym[33] |= 1 << 16
+    w = np.zeros(SMALL_CAP, np.int32)
+    w[:n] = 1
+    cand, counts = _window(np.random.default_rng(1), [2, 3], pack_pair(2, 3), n_aff=1)
+    p = _compare_merge(sym, w, n, pack_pair(2, 3), 300, cand, counts)
+    assert (p[0][: int(p[2])] & 0xFFFF == 300).sum() == 31
+
+
+def test_noop_pair_zero():
+    rng = np.random.default_rng(11)
+    n = 512
+    sym = np.zeros(SMALL_CAP, np.uint32)
+    sym[:n] = rng.integers(0, 3, size=n)  # many 0s: (0,0) must not match
+    sym[0] |= 1 << 16
+    w = np.zeros(SMALL_CAP, np.int32)
+    w[:n] = 1
+    cand = np.full(tk.W_SLOTS, 0xFFFFFFFF, np.uint32)
+    counts = np.full(tk.W_SLOTS, -1, np.int32)
+    cand[:3], counts[:3] = [pack_pair(1, 2), pack_pair(2, 1), pack_pair(1, 1)], 5
+    p = _compare_merge(sym, w, n, 0, 300, cand, counts)
+    assert int(p[2]) == n
+    np.testing.assert_array_equal(p[0].astype(np.uint32), sym)
+
+
+def test_garbage_tail_never_matches():
+    """Garbage past n (a recycled buffer) creates no site or removal and
+    never leaks into any output: the port's result equals its result on
+    the clean stream, whose stream equals the Pallas one."""
+    rng = np.random.default_rng(3)
+    n = 3000
+    sym, w = _stream(rng, n, SMALL_CAP, TOKS_LOW)
+    pair = pack_pair(2, 3)
+    cand, counts = _window(rng, TOKS_LOW, pair, n_aff=5)
+    clean = _compare_merge(sym, w, n, pair, 300, cand, counts)
+    dirty_s, dirty_w = sym.copy(), w.copy()
+    dirty_s[n:] = np.tile([2, 3], (SMALL_CAP - n) // 2)
+    dirty_w[n:] = 999
+    dirty = _port_merge(dirty_s, dirty_w, n, pair, 300, cand, counts)
+    for c, d in zip(clean, dirty):
+        np.testing.assert_array_equal(c, d)
+
+
+# ─────────────────────────────── count_pairs2 ────────────────────────────────
+
+
+def _compare_count(sym, w, n, p1, p2):
+    j = np.asarray(pk.count_pairs2(
+        jnp.asarray(sym), jnp.asarray(w), jnp.asarray(n), jnp.uint32(p1), jnp.uint32(p2),
+        interpret=True,
+    ))
+    p = tk.count_pairs2(torch.from_numpy(sym.astype(np.int32)), torch.from_numpy(w), n, p1, p2)
+    np.testing.assert_array_equal(p.numpy(), j.astype(np.int64))
+    return p.numpy()
+
+
+@pytest.mark.parametrize("seed,n,toks", [(0, 16, TOKS_LOW), (1, 4000, TOKS_LOW), (2, 4000, TOKS_HIGH)])
+def test_count_pairs2_random(seed, n, toks):
+    rng = np.random.default_rng(seed)
+    sym, w = _stream(rng, n, SMALL_CAP, toks)
+    got = _compare_count(sym, w, n, pack_pair(toks[0], toks[1]), pack_pair(toks[2], toks[3]))
+    assert n < 100 or got.min() > 0
+
+
+def test_count_pairs2_token0_and_sentinel():
+    rng = np.random.default_rng(3)
+    n = 4000
+    sym = np.zeros(SMALL_CAP, np.uint32)
+    sym[:n] = rng.integers(0, 4, size=n)
+    sym[0] |= 1 << 16
+    w = np.zeros(SMALL_CAP, np.int32)
+    w[:n] = 1
+    assert _compare_count(sym, w, n, 1, pack_pair(0, 2)).tolist() == [0, 0]
+    _compare_count(sym, w, n, 0, pack_pair(3, 0))
+
+
+def test_count_pairs2_block_edge_and_last():
+    n = BLOCK + 64
+    sym = np.zeros(BIG_CAP, np.uint32)
+    sym[:n] = 7
+    sym[0] |= 1 << 16
+    sym[BLOCK - 1], sym[BLOCK] = 2, 3
+    sym[n - 1] = 2  # the last symbol has no successor
+    w = np.zeros(BIG_CAP, np.int32)
+    w[:n] = 5
+    assert _compare_count(sym, w, n, pack_pair(2, 3), pack_pair(7, 2))[0] == 5
+
+
+# ──────────────────────────────── window_post ────────────────────────────────
+
+
+def _wp_inputs(rng, *, big_bins=False, has_room=True, active=True, use_probes=True, hi=False):
+    base = 0x8000 if hi else 1
+    toks = [base + 5 * i for i in range(30)]
+    pair = pack_pair(toks[0], toks[1])
+    cand, counts = _window(rng, toks, pair, n_aff=20, n_other=120)
+    scale = 3e9 if big_bins else 7e5
+    bins_l = (rng.random((16, 16)) * scale).astype(np.float32)
+    bins_r = (rng.random((16, 16)) * scale).astype(np.float32)
+    log = np.zeros(BATCH_MERGES * 3, np.uint32)
+    log[:30] = rng.integers(0, 2**32 - 1, size=30, dtype=np.uint32)
+    aff = [k for k in range(tk.W_SLOTS) if counts[k] >= 0 and cand[k] != pair
+           and ((cand[k] & 0xFFFF) == toks[0] or (cand[k] >> 16) == toks[1])]
+    probes = np.ones(tk.N_PROBES, np.uint32)
+    probes[: len(aff)] = cand[aff]
+    pcnt = np.zeros(tk.N_PROBES, np.int32)
+    pcnt[: len(aff)] = rng.integers(0, 9000, size=len(aff))
+    fill = int(rng.integers(128, 250))
+    scalars = dict(
+        pair=pair, count=4321, next_id=0x9ABC if hi else 300, theta=int(rng.integers(100, 6000)),
+        ub_new=int(rng.integers(0, 3000)), fill=fill, merges_done=9, active=active,
+        early_stop=False, use_probes=use_probes, n_aff=len(aff), c_l=int(bins_l.max() // 2),
+        c_r=77, l_ok=True, r_ok=has_room, l_tok=toks[3], r_tok=toks[4] if has_room else 0x10000,
+        has_room=has_room and active,
+    )
+    return cand, counts, bins_l, bins_r, log, probes, pcnt, scalars
+
+
+@pytest.mark.parametrize(
+    "case",
+    [dict(), dict(hi=True), dict(big_bins=True), dict(has_room=False), dict(active=False),
+     dict(use_probes=False), dict(hi=True, big_bins=True)],
+)
+def test_window_post_identical_inputs(case):
+    rng = np.random.default_rng(len(str(case)))
+    cand, counts, bins_l, bins_r, log, probes, pcnt, sc = _wp_inputs(rng, **case)
+    jsc = {k: (jnp.uint32(v) if k in ("pair", "next_id", "l_tok", "r_tok") else jnp.asarray(v))
+           for k, v in sc.items()}
+    j = pk.window_post(
+        jnp.asarray(cand), jnp.asarray(counts), jnp.asarray(bins_l), jnp.asarray(bins_r),
+        jnp.asarray(log), probes=jnp.asarray(probes), pcnt=jnp.asarray(pcnt), interpret=True, **jsc,
+    )
+    j = [np.asarray(x) for x in j]
+    p = tk.window_post(
+        torch.from_numpy(cand.astype(np.int64)), torch.from_numpy(counts.astype(np.int64)),
+        torch.from_numpy(bins_l), torch.from_numpy(bins_r), torch.from_numpy(log.astype(np.int64)),
+        probes=torch.from_numpy(probes.astype(np.int64)), pcnt=torch.from_numpy(pcnt.astype(np.int64)),
+        **sc,
+    )
+    p = [x.numpy() for x in p]
+    np.testing.assert_array_equal(p[0], j[0].astype(np.int64))
+    np.testing.assert_array_equal(p[1], j[1].astype(np.int64))
+    np.testing.assert_array_equal(p[2], j[2].astype(np.int64))
+    want = j[3].astype(np.int64)
+    want[6:] &= 0xFFFFFFFF  # next_id and pend_pair as unsigned values
+    np.testing.assert_array_equal(p[3], want)
+
+
+def test_window_post_unsigned_winner_order():
+    """Two slots tie on the max count; the one whose first token is >=
+    0x8000 must lose to the smaller unsigned pair id."""
+    cand = np.full(tk.W_SLOTS, 0xFFFFFFFF, np.uint32)
+    counts = np.full(tk.W_SLOTS, -1, np.int32)
+    cand[:3] = [pack_pair(0x9000, 5), pack_pair(0x7000, 5), pack_pair(1, 2)]
+    counts[:3] = [500, 500, 10]
+    zeros = np.zeros((16, 16), np.float32)
+    sc = dict(pair=pack_pair(1, 2), count=10, next_id=300, theta=0, ub_new=0, fill=128,
+              merges_done=0, active=True, early_stop=False, use_probes=True, n_aff=0, c_l=0,
+              c_r=0, l_ok=False, r_ok=False, l_tok=0x10000, r_tok=0x10000, has_room=True)
+    p = tk.window_post(
+        torch.from_numpy(cand.astype(np.int64)), torch.from_numpy(counts.astype(np.int64)),
+        torch.from_numpy(zeros), torch.from_numpy(zeros), torch.zeros(BATCH_MERGES * 3, dtype=torch.int64),
+        probes=torch.ones(tk.N_PROBES, dtype=torch.int64), pcnt=torch.zeros(tk.N_PROBES, dtype=torch.int64),
+        **sc,
+    )
+    sout = p[3].tolist()
+    assert sout[7] == pack_pair(0x7000, 5) and sout[4] == 500 and sout[5] == 1
+
+
+def test_wrappers_reject_unsupported_devices():
+    t = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tk.count_pairs2(t, t.to("meta"), 4, 1, 2)
