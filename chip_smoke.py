@@ -6,7 +6,7 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit from nvidia-smi, torch and CUDA
    versions;
-2. build: the three CUDA kernels built from ops/csrc with nvcc (seconds);
+2. build: the CUDA kernels built from ops/csrc with nvcc (seconds);
 3. kernel checks: each kernel against its plain PyTorch version on the card,
    on inputs made from a numpy seed at the main path's shapes (capacity
    2^20, ~0.9 M live symbols, a live 256-slot window): affected sets in each
@@ -22,7 +22,27 @@ Phases, each printing one JSON line:
 5. the same trainer with force_recount=True for the first 256 merges: its
    merge list must equal phase 4's first 256 merges;
 6. phase 4's corpus cut to 1 MB, 128 merges, on cuda and on cpu: the merge
-   lists must be equal.
+   lists must be equal;
+7. tokenize vocab: Trainer(device="cuda") to 8,192 tokens on phase 4's
+   corpus (bench.py's TOKENIZE_VOCAB), and bench.py's synthetic 65,536-entry
+   vocab of the same corpus's words (full stab chain);
+8. tokenize main path: Tokenizer(vocab).encode_bytes on the 16 MB corpus as
+   one pass, at the 8K vocab and then at the 64K vocab; every tokenize
+   kernel's launch count on these two runs (each must be > 0, and the
+   rank-space chain must engage in at least one); device MB/s (passes
+   chained on the card, timed by CUDA events), wall MB/s (upload, pass and
+   host copy), bytes/token, stab levels, dense lengths;
+9. tokenize checks: the ids equal rank_mode="off" on the card at the full
+   16 MB for both vocabs; on a 1 MB cut the card's ids equal the port's CPU
+   path and GreedyTrieEncoder; decode(ids) returns the corpus;
+10. tokenize kernel checks: each of compact_valid, compact_mask,
+   expand_to_mask and overlay_fit against its plain version on the card
+   (tolerance 0; compaction outputs on their first `total` entries), on the
+   inputs the main path gave it (recorded during phase 8) and on synthetic
+   edge cases (all or none dropped, a ragged tail, ids >= 0x8000, random
+   sorted streams of any length); the time of each at the main path's
+   first call's shapes, its plain version's, one PyTorch call computing
+   the same function (library), and the byte bound.
 
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
@@ -36,6 +56,8 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -47,12 +69,21 @@ MERGES = 1024
 FORCE_MERGES = 256
 SMALL_BYTES = 1 << 20
 SMALL_MERGES = 128
+TOKENIZE_VOCAB = 8192
+DEVICE_PASSES = 5  # chained passes behind the device MB/s
 PALLAS = "gpu_bpe_tpu/ops/pallas_kernels.py"
+CSRC = "gpu_bpe_tpu_torch/ops/csrc"
 KERNELS = {
-    "merge_compact_tracked": ("gpu_bpe_tpu_torch/ops/csrc/merge_compact_tracked.cu", f"{PALLAS}:136"),
-    "count_pairs2": ("gpu_bpe_tpu_torch/ops/csrc/count_pairs2.cu", f"{PALLAS}:641"),
-    "window_post": ("gpu_bpe_tpu_torch/ops/csrc/window_post.cu", f"{PALLAS}:1094"),
+    "merge_compact_tracked": (f"{CSRC}/merge_compact_tracked.cu", f"{PALLAS}:136"),
+    "count_pairs2": (f"{CSRC}/count_pairs2.cu", f"{PALLAS}:641"),
+    "window_post": (f"{CSRC}/window_post.cu", f"{PALLAS}:1094"),
+    "compact_valid": (f"{CSRC}/compact_mask.cu", f"{PALLAS}:746"),
+    "compact_mask": (f"{CSRC}/compact_mask.cu", f"{PALLAS}:746"),
+    "expand_to_mask": (f"{CSRC}/expand_to_mask.cu", f"{PALLAS}:943"),
+    "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
 }
+TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
+TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
 
 
 def emit(obj) -> None:
@@ -87,6 +118,32 @@ def synth_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 120_000) -> byte
         parts.append(blob)
         size += len(blob)
     return b"".join(parts)[:n_bytes]
+
+
+def synth_vocab_64k(corpus: bytes) -> list[bytes]:
+    """bench.py's deterministic 65,536-entry vocab: the corpus's frequent
+    words and their prefixes (2..20 bytes), padded with numeric strings."""
+    vocab: list[bytes] = [bytes([b]) for b in range(256)]
+    seen = set(vocab)
+    freq = Counter(corpus.split())
+    for w, _ in freq.most_common():
+        if len(vocab) >= 65536:
+            break
+        for end in range(2, min(len(w), 20) + 1):
+            cand = w[:end]
+            if cand not in seen:
+                seen.add(cand)
+                vocab.append(cand)
+                if len(vocab) >= 65536:
+                    break
+    k = 0
+    while len(vocab) < 65536:
+        cand = b"#%d" % k
+        if cand not in seen:
+            seen.add(cand)
+            vocab.append(cand)
+        k += 1
+    return vocab
 
 
 def nvidia_smi_line() -> str:
@@ -183,7 +240,7 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
             int(rs.pend_pair), 256, rs.cand.cpu().numpy(), rs.cand_counts.cpu().numpy())
     cases.append(real)
 
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in TRAIN_KERNELS}
     details = []
     for name, sym, w, n, pair, new_id, cand, counts in cases:
         args = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev),
@@ -274,6 +331,185 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     return rows
 
 
+# ───────────────────────────── tokenize phases ─────────────────────────────
+
+
+@contextmanager
+def recorded_calls(ttz):
+    """Record the arguments of every tokenize-kernel call that the
+    tokenizer makes, by name, while the block runs."""
+    calls = {name: [] for name in TOKENIZE_KERNELS}
+    originals = {name: getattr(ttz, name) for name in TOKENIZE_KERNELS}
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in originals.items():
+        setattr(ttz, name, recording(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(ttz, name, fn)
+
+
+def pass_rates(torch, tok, corpus: bytes) -> dict:
+    """Device MB/s: DEVICE_PASSES passes on a buffer already on the card,
+    enqueued back to back and timed by CUDA events (each pass still reads
+    its rank-space candidate count on the host); wall MB/s: encode_bytes
+    end to end (upload, pass, host copy)."""
+    n = len(corpus)
+    buf = np.zeros(tok.capacity(n), np.uint8)
+    buf[:n] = np.frombuffer(corpus, np.uint8)
+    dbuf = torch.from_numpy(buf).cuda()
+    tok.encode_pass(dbuf, n)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DEVICE_PASSES):
+        tok.encode_pass(dbuf, n)
+    end.record()
+    end.synchronize()
+    pass_ms = start.elapsed_time(end) / DEVICE_PASSES
+    t0 = time.perf_counter()
+    tok.encode_bytes(corpus)
+    wall_s = time.perf_counter() - t0
+    return {"pass_ms": pass_ms, "device_mb_per_s": n / (pass_ms / 1e3) / 1e6,
+            "wall_s": wall_s, "wall_mb_per_s": n / wall_s / 1e6}
+
+
+def _u32_mask(n: int, rng, keep_p: float, hi: int):
+    v = rng.integers(0, hi, size=n, dtype=np.uint64).astype(np.uint32)
+    v[rng.random(n) >= keep_p] = 0xFFFFFFFF
+    return v
+
+
+def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
+    """Phase 10: each tokenize kernel against its plain version on the card,
+    on the inputs recorded from the main path and on synthetic edge cases;
+    times at the main path's first call's shapes."""
+    rng = np.random.default_rng(4321)
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(dev)
+
+    def compact_pair(fn, plain, vals, extras):
+        got, got_t = fn(vals, extras) if extras is not None else fn(vals)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        want, want_t = plain(vals, extras or ())
+        t = int(want_t)
+        got = got if extras is not None else [got]
+        return max_abs_diff([g[:t] for g in got] + [got_t], [w[:t] for w in want] + [want_t])
+
+    synth_compact = []
+    for n, keep_p, ne in ((1 << 20, 0.0, 2), (1 << 20, 1.0, 3), ((1 << 20) + 12345, 0.3, 9),
+                          (777, 0.5, 1)):
+        vals = i32(_u32_mask(n, rng, keep_p, 0x10000))
+        vals[: min(n, 64)] = i32(np.arange(0x8000, 0x8000 + min(n, 64), dtype=np.uint32))  # ids >= 0x8000
+        extras = [i32(rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)) for _ in range(ne)]
+        synth_compact.append((vals, extras))
+
+    err = {k: 0.0 for k in TOKENIZE_KERNELS}
+    cases = {k: 0 for k in TOKENIZE_KERNELS}
+    for args, _ in calls["compact_valid"][:2]:
+        err["compact_valid"] = max(err["compact_valid"], compact_pair(
+            kernels.compact_valid, kernels.compact_mask_plain, args[0], None))
+        cases["compact_valid"] += 1
+    for args, _ in calls["compact_mask"][:2]:
+        err["compact_mask"] = max(err["compact_mask"], compact_pair(
+            kernels.compact_mask, kernels.compact_mask_plain, args[0], list(args[1])))
+        cases["compact_mask"] += 1
+    for vals, extras in synth_compact:
+        err["compact_valid"] = max(err["compact_valid"], compact_pair(
+            kernels.compact_valid, kernels.compact_mask_plain, vals, None))
+        err["compact_mask"] = max(err["compact_mask"], compact_pair(
+            kernels.compact_mask, kernels.compact_mask_plain, vals, extras))
+        cases["compact_valid"] += 1
+        cases["compact_mask"] += 1
+        mask = vals != -1
+        src = extras[0]
+        got = kernels.expand_to_mask(mask, src)
+        torch.cuda.synchronize()
+        err["expand_to_mask"] = max(err["expand_to_mask"],
+                                    max_abs_diff([got], [kernels.expand_to_mask_plain(mask, src)]))
+        cases["expand_to_mask"] += 1
+    for args, _ in calls["expand_to_mask"][:2]:
+        got = kernels.expand_to_mask(*args)
+        torch.cuda.synchronize()
+        err["expand_to_mask"] = max(err["expand_to_mask"],
+                                    max_abs_diff([got], [kernels.expand_to_mask_plain(*args)]))
+        cases["expand_to_mask"] += 1
+    # overlay: the main path's level-1 stream, its first rank-space level
+    # stream, and random sorted streams (any m, ids >= 0x8000, several
+    # segments, with and without a group slot)
+    overlay_inputs = [calls["overlay_fit"][0]] + [c for c in calls["overlay_fit"][1:] if c[1]["base_len"] > 0][:1]
+    for nseg, m, gd in ((3, 70_001, 9), (1, 2_500_000, -1), (40, 4096, 7)):
+        kp = np.sort(rng.integers(0, 2**32, size=(nseg, m), dtype=np.uint64).astype(np.uint32), axis=1)
+        depths = 10 if gd != 7 else 8
+        overlay_inputs.append(((i32(kp), 1_500_000), dict(chunk_size=512, depths=depths, base_len=3,
+                                                           max_depth=depths - 2, group_depth=gd)))
+    for args, kw in overlay_inputs:
+        got = stab_kernels.overlay_fit(*args, **kw)
+        torch.cuda.synchronize()
+        err["overlay_fit"] = max(err["overlay_fit"],
+                                 max_abs_diff(got, stab_kernels.overlay_fit_plain(*args, **kw)))
+        cases["overlay_fit"] += 1
+    for k, e in err.items():
+        if e != 0.0 or cases[k] == 0:
+            raise AssertionError(f"{k} disagrees with its plain version: max_abs_err {e}, cases {cases[k]}")
+
+    # timings at the main path's shapes: the first call of each kernel
+    (cv_vals,), _ = calls["compact_valid"][0]
+    cv_keep = cv_vals != -1
+    cv_total = int(cv_keep.sum())
+    (cm_vals, cm_extras), _ = calls["compact_mask"][0]
+    cm_extras = list(cm_extras)
+    cm_keep = cm_vals != -1
+    cm_total = int(cm_keep.sum())
+    (ex_mask, ex_vals), _ = calls["expand_to_mask"][0]
+    ex_set = int(ex_mask.sum())
+    ex_zeros = torch.zeros(ex_mask.shape[0], dtype=torch.int32, device=dev)
+    (ov_skp, ov_len), ov_kw = calls["overlay_fit"][0]
+    n_cv, n_cm, n_ex = cv_vals.numel(), cm_vals.numel(), ex_mask.numel()
+    timing = {
+        "compact_valid": (lambda: kernels.compact_valid(cv_vals),
+                          lambda: kernels.compact_mask_plain(cv_vals),
+                          lambda: torch.masked_select(cv_vals, cv_keep),
+                          4 * n_cv + 4 * cv_total + 8,
+                          {"n": n_cv, "total": cv_total}),
+        "compact_mask": (lambda: kernels.compact_mask(cm_vals, cm_extras),
+                         lambda: kernels.compact_mask_plain(cm_vals, cm_extras),
+                         lambda: [torch.masked_select(a, cm_keep) for a in (cm_vals, *cm_extras)],
+                         4 * n_cm + 4 * cm_total * (1 + 2 * len(cm_extras)) + 8,
+                         {"n": n_cm, "n_extra": len(cm_extras), "total": cm_total}),
+        "expand_to_mask": (lambda: kernels.expand_to_mask(ex_mask, ex_vals),
+                           lambda: kernels.expand_to_mask_plain(ex_mask, ex_vals),
+                           lambda: ex_zeros.masked_scatter(ex_mask, ex_vals),
+                           n_ex + 4 * ex_set + 4 * n_ex,
+                           {"n": n_ex, "set": ex_set, "vals": ex_vals.numel()}),
+        "overlay_fit": (lambda: stab_kernels.overlay_fit(ov_skp, ov_len, **ov_kw),
+                        lambda: stab_kernels.overlay_fit_plain(ov_skp, ov_len, **ov_kw),
+                        None,
+                        16 * ov_skp.numel(),
+                        {"shape": list(ov_skp.shape), **ov_kw}),
+    }
+    rows = {}
+    for k, (kern, plain, library, nbytes, shape) in timing.items():
+        ms = time_ms(torch, kern, 20)
+        plain_ms = time_ms(torch, plain, 3)
+        library_ms = time_ms(torch, library, 20) if library else None
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+                       max_abs_err=err[k])
+        emit({"phase": "kernel", "name": k, "cases": cases[k], "max_abs_err": err[k], "tolerance": 0,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+              "bound_ms": bound_ms, "bound_by": "bytes", "shape": shape})
+    return rows
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -296,8 +532,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from gpu_bpe_tpu_torch import Trainer
-    from gpu_bpe_tpu_torch.ops import build, kernels
+    from gpu_bpe_tpu_torch import Tokenizer, Trainer
+    from gpu_bpe_tpu_torch.core import GreedyTrieEncoder
+    from gpu_bpe_tpu_torch.ops import build, kernels, stab_kernels
+    from gpu_bpe_tpu_torch.ops import tokenize as ttz
     from gpu_bpe_tpu_torch.ops import train_step as ts
     from gpu_bpe_tpu_torch.ops.ingest import make_stream, pad_stream
     from gpu_bpe_tpu_torch.pretok import byte_word_starts
@@ -325,7 +563,7 @@ def main() -> int:
     # ── phase 4: the main path, launch counts from this run only ──
     kernels.LAUNCHES.clear()
     res, events = train(torch, Trainer, stream, MERGES, "cuda")
-    launches = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
     cap = int(padded.symbols.shape[0])
     for ev in events:  # replay the trainer's shrink ladder
         while cap > 2048 and ev["symbolCount"] + 32 <= cap // 2:
@@ -361,10 +599,72 @@ def main() -> int:
     if not same or len(on_gpu.merges) != SMALL_MERGES:
         raise AssertionError("cuda and cpu merge lists differ")
 
+    # ── phase 7: the tokenize vocabs ──
+    t0 = time.perf_counter()
+    res8k, _ = train(torch, Trainer, stream, TOKENIZE_VOCAB - 256, "cuda")
+    train_s = time.perf_counter() - t0
+    vocabs = {"8192": res8k.vocab, "65536-synth": synth_vocab_64k(corpus)}
+    emit({"phase": "tokenize_vocab", "vocab_size": res8k.vocab_size, "train_seconds": train_s,
+          "merges_per_s": len(res8k.merges) / res8k.training_time_s, "recounts": res8k.recounts})
+    if res8k.vocab_size != TOKENIZE_VOCAB:
+        raise AssertionError(f"tokenize vocab has {res8k.vocab_size} tokens, want {TOKENIZE_VOCAB}")
+    toks = {label: Tokenizer(v) for label, v in vocabs.items()}
+
+    # ── phase 8: tokenize main path, launch counts from these runs only ──
+    kernels.LAUNCHES.clear()
+    ids, per_run = {}, {}
+    with recorded_calls(ttz) as calls:
+        for label, tok in toks.items():
+            before = Counter(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            ids[label] = tok.encode_bytes(corpus)
+            first_s = time.perf_counter() - t0
+            per_run[label] = ({k: kernels.LAUNCHES[k] - before[k] for k in TOKENIZE_KERNELS}, first_s)
+    tok_launches = {k: kernels.LAUNCHES[k] for k in TOKENIZE_KERNELS}
+    launches.update(tok_launches)
+    rank_engaged = {label: run[0]["expand_to_mask"] > 0 for label, run in per_run.items()}
+    for label, tok in toks.items():
+        t = tok.tables
+        emit({"phase": "tokenize_main", "vocab": label, "bytes": len(corpus), "passes": 1,
+              "tokens": len(ids[label]), "bytes_per_token": len(corpus) / len(ids[label]),
+              "first_call_seconds": per_run[label][1], **pass_rates(torch, tok, corpus),
+              "chunk_size": tok.chunk_size, "max_token_len": t.max_token_len,
+              "stab_levels": 1 + len(t.stab["levels"]) if t.stab else 0,
+              "dense_lengths": t.dense_lengths, "rank_space": rank_engaged[label],
+              "launches": per_run[label][0]})
+    emit({"phase": "tokenize_launches", "launches": tok_launches})
+    if min(tok_launches.values()) <= 0:
+        raise AssertionError(f"a tokenize kernel never launched on the main path: {tok_launches}")
+    if not any(rank_engaged.values()):
+        raise AssertionError("the rank-space chain engaged in neither tokenize run")
+
+    # ── phase 9: tokenize results ──
+    for label, vocab in vocabs.items():
+        off = Tokenizer(vocab, rank_mode="off").encode_bytes(corpus)
+        same = np.array_equal(off, ids[label])
+        emit({"phase": "tokenize_rank_off", "vocab": label, "equal": same})
+        if not same:
+            raise AssertionError(f"vocab {label}: rank space and full width give different ids")
+    tok8 = toks["8192"]
+    decoded = tok8.decode(ids["8192"])
+    small = corpus[:SMALL_BYTES]
+    on_gpu = tok8.encode_bytes(small)
+    on_cpu = Tokenizer(vocabs["8192"], device="cpu").encode_bytes(small)
+    ref = GreedyTrieEncoder(vocabs["8192"], chunk_size=tok8.chunk_size).encode(small)
+    checks = {"decode_roundtrip": decoded == corpus, "cuda_eq_cpu": np.array_equal(on_gpu, on_cpu),
+              "cuda_eq_greedy": np.array_equal(on_gpu, ref)}
+    emit({"phase": "tokenize_checks", "small_bytes": len(small), "small_tokens": len(on_gpu), **checks})
+    if not all(checks.values()):
+        raise AssertionError(f"tokenize checks failed: {checks}")
+
+    # ── phase 10: tokenize kernels against their plain versions ──
+    rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, calls, torch.device("cuda")))
+    del calls
+
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
          "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
-         "bound_ms": rows[k]["bound_ms"], "bound_by": "bytes", "library_ms": None}
+         "bound_ms": rows[k]["bound_ms"], "bound_by": "bytes", "library_ms": rows[k].get("library_ms")}
         for k, (src, rep) in KERNELS.items()
     ]})
     print(smi, flush=True)

@@ -10,7 +10,8 @@ a hash of the source, the shared header and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. They are bound with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, sizes as
 ``c_longlong``, and each entry point returns its ``cudaGetLastError()``,
-which the wrappers in ``ops/kernels.py`` raise on. A failed build raises.
+which the wrappers in ``ops/kernels.py`` and ``ops/stab_kernels.py``
+raise on. A failed build raises.
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("merge_compact_tracked", "count_pairs2", "window_post")
+SOURCES = (
+    "merge_compact_tracked", "count_pairs2", "window_post",
+    "compact_mask", "expand_to_mask", "overlay_fit",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -41,8 +45,21 @@ _SIGNATURES = {
     },
     "count_pairs2": {"count_pairs2": [_P, _P, _I, _P, _P, _P, _P, _P]},
     "window_post": {"window_post": [_P] * 6 + [_I] + [_P] * 5},
+    "compact_mask": {
+        "compact_mask": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+        "cm_scratch_words": [_I],
+    },
+    "expand_to_mask": {
+        "expand_to_mask": [_P, _I, _P, _I, _P, _P, _P],
+        "em_scratch_words": [_I],
+    },
+    "overlay_fit": {
+        "overlay_fit": [_P] + [_I] * 8 + [_P] * 5,
+        "of_scratch_words": [_I, _I],
+    },
 }
-_RESTYPES = {"mc_scratch_words": ctypes.c_longlong}
+_RESTYPES = {name: ctypes.c_longlong
+             for name in ("mc_scratch_words", "cm_scratch_words", "em_scratch_words", "of_scratch_words")}
 
 
 def _nvcc() -> str:

@@ -62,4 +62,20 @@ __device__ __forceinline__ int block_exclusive_scan(int x, int* total) {
     return before + inc - x;
 }
 
+// Run by ONE block: exclusive prefix sum, in place, of `count` per-block
+// counts (each at most TILE), so that words[b] becomes the output offset
+// of block b. Returns the total to every thread.
+__device__ __forceinline__ long long scan_block_counts(long long* words, long long count) {
+    long long carry = 0;
+    for (long long base = 0; base < count; base += blockDim.x) {
+        const long long i = base + threadIdx.x;
+        const int x = i < count ? (int)words[i] : 0;
+        int tot;
+        const int ex = block_exclusive_scan(x, &tot);
+        if (i < count) words[i] = carry + ex;
+        carry += tot;
+    }
+    return carry;
+}
+
 }  // namespace bpe

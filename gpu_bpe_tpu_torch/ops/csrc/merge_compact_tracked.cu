@@ -108,16 +108,8 @@ __global__ void flag_count(const int* sym, long long cap, const long long* n_p, 
 
 __global__ void scan_blocks(long long nblocks, long long cap, const long long* n_p, long long* n_new,
                             long long* scratch) {
-    long long carry = 0;
-    for (long long base = 0; base < nblocks; base += blockDim.x) {
-        const long long i = base + threadIdx.x;
-        const int x = i < nblocks ? (int)scratch[SC_BLK + i] : 0;
-        int tot;
-        const int ex = block_exclusive_scan(x, &tot);
-        if (i < nblocks) scratch[SC_BLK + i] = carry + ex;
-        carry += tot;
-    }
-    if (threadIdx.x == 0) *n_new = min(*n_p, cap) - carry;
+    const long long removed = scan_block_counts(scratch + SC_BLK, nblocks);
+    if (threadIdx.x == 0) *n_new = min(*n_p, cap) - removed;
 }
 
 __global__ void scatter(const int* sym, const int* w, long long cap, const long long* n_p,

@@ -1,5 +1,6 @@
-"""The training kernels: CUDA wrappers, their plain PyTorch versions and
-launch counters (counterpart of ``gpu_bpe_tpu/ops/pallas_kernels.py``).
+"""The training and compaction kernels: CUDA wrappers, their plain PyTorch
+versions and launch counters (counterpart of
+``gpu_bpe_tpu/ops/pallas_kernels.py``).
 
 Each public wrapper takes the plain version for tensors that lie on the
 CPU, and launches its hand-written CUDA kernel (``ops/csrc``) for CUDA
@@ -14,7 +15,9 @@ Storage conventions (shared with the CUDA sources):
   comparison of pair ids is in unsigned order;
 * scalars are 0-d int64 tensors on the stream's device (Python ints are
   accepted and copied there), so the three launches of a merge need no
-  host read between them.
+  host read between them;
+* the compaction kernels take and return u32 words as int32 tensors of
+  the same bits (``INVALID`` is -1 there), and boolean masks.
 
 Outputs differ from the Pallas functions only where the Pallas ones are
 approximations or layout artefacts: ``bins`` hold the exact integer mass
@@ -391,3 +394,105 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     _check(rc, "window_post")
     LAUNCHES["window_post"] += 1
     return cand2, counts2, log2, sout
+
+
+# ───────────────────────── compact_mask / compact_valid ──────────────────────
+
+MAX_EXTRA = 9  # arrays riding along in compact_mask (compact_mask.cu MAX_EXTRA)
+
+
+def compact_mask_plain(vals, extras=()):
+    """Plain PyTorch version of ``compact_mask`` (zeros past the total)."""
+    keep = vals != -1
+    outs = []
+    for src in (vals & TOKEN_MASK, *extras):
+        kept = src[keep]
+        out = torch.zeros_like(src)
+        out[: kept.shape[0]] = kept
+        outs.append(out)
+    return outs, keep.sum()
+
+
+def _compact_launch(name: str, vals, extras):
+    from .build import load
+
+    dev = vals.device
+    n = vals.shape[0]
+    _require(vals, torch.int32, (n,), "vals")
+    if len(extras) > MAX_EXTRA:
+        raise ValueError(f"{name}: at most {MAX_EXTRA} extras, got {len(extras)}")
+    for e in extras:
+        _require(e, torch.int32, (n,), "extra")
+    lib = load()["compact_mask"]
+    out = torch.empty_like(vals)
+    outs = [torch.empty_like(e) for e in extras]
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(1, int(lib.cm_scratch_words(n))), dtype=torch.int64, device=dev)
+    ptrs_in = (ctypes.c_void_p * MAX_EXTRA)(*[e.data_ptr() for e in extras])
+    ptrs_out = (ctypes.c_void_p * MAX_EXTRA)(*[o.data_ptr() for o in outs])
+    with torch.cuda.device(dev):
+        rc = lib.compact_mask(
+            _ptr(vals), n, ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), len(extras),
+            _ptr(out), _ptr(total), _ptr(scratch), _stream(dev),
+        )
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return [out, *outs], total
+
+
+def compact_mask(vals, extras=()):
+    """Stable compaction under the mask ``vals != INVALID``.
+
+    ``vals`` and each of the at most ``MAX_EXTRA`` ``extras`` are int32
+    ``[n]`` u32 words. Returns ``([primary, *extras_c], total)``: arrays of
+    length n whose first ``total`` entries are the survivors in order (the
+    primary keeps the low 16 bits of its words, the extras their full
+    words); what lies past ``total`` is unspecified. ``total`` is a 0-d
+    int64 tensor on the device."""
+    extras = tuple(extras)
+    if _on_cpu(vals, *extras):
+        return compact_mask_plain(vals, extras)
+    return _compact_launch("compact_mask", vals, extras)
+
+
+def compact_valid(vals):
+    """``compact_mask`` without extras (the tokenizer's PAD strip): returns
+    ``(compacted, total)``."""
+    if _on_cpu(vals):
+        outs, total = compact_mask_plain(vals)
+    else:
+        outs, total = _compact_launch("compact_valid", vals, ())
+    return outs[0], total
+
+
+# ─────────────────────────────── expand_to_mask ──────────────────────────────
+
+
+def expand_to_mask_plain(mask, vals):
+    """Plain PyTorch version of ``expand_to_mask``."""
+    out = torch.zeros(mask.shape[0], dtype=torch.int32, device=mask.device)
+    out[mask] = vals[: int(mask.sum())]
+    return out
+
+
+def expand_to_mask(mask, vals):
+    """The inverse of ``compact_mask``: int32 ``[n]`` with ``vals[r]`` at the
+    r-th set entry of the bool ``[n]`` ``mask`` and 0 elsewhere. ``vals``
+    (int32) must hold at least as many entries as ``mask`` has set."""
+    if _on_cpu(mask, vals):
+        return expand_to_mask_plain(mask, vals)
+    from .build import load
+
+    dev = mask.device
+    n = mask.shape[0]
+    _require(mask, torch.bool, (n,), "mask")
+    _require(vals, torch.int32, None, "vals")
+    lib = load()["expand_to_mask"]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(1, int(lib.em_scratch_words(n))), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.expand_to_mask(_ptr(mask), n, _ptr(vals), vals.numel(), _ptr(out), _ptr(scratch),
+                                _stream(dev))
+    _check(rc, "expand_to_mask")
+    LAUNCHES["expand_to_mask"] += 1
+    return out

@@ -76,6 +76,8 @@ def test_byte_heuristic_bitwise(english_text):
 def test_import_leaves_out_jax_and_the_reference_package():
     code = (
         "import sys, gpu_bpe_tpu_torch, gpu_bpe_tpu_torch.convert, gpu_bpe_tpu_torch.ops.build\n"
+        "import gpu_bpe_tpu_torch.ops.tokenize, gpu_bpe_tpu_torch.ops.stab_kernels\n"
+        "import gpu_bpe_tpu_torch.core.encoder_ref\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu') "
         "or m.startswith(('jax.', 'gpu_bpe_tpu.'))]\n"
         "print(bad)\n"
