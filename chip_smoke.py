@@ -11,10 +11,15 @@ Phases, each printing one JSON line:
    on inputs made from a numpy seed at the main path's shapes (capacity
    2^20, ~0.9 M live symbols, a live 256-slot window): affected sets in each
    16-probe tier and above 64, ids >= 0x8000, overlap runs and word starts
-   at block edges, garbage past n. Bitwise comparison (tolerance 0: both
-   versions sum integers exactly and round the histograms to f32 once).
-   Each line has the kernel's median time over CUDA events, the plain
-   version's, the bytes it must move and the bound at 3.35 TB/s;
+   at block edges, garbage past n; window_post's scalars as the main path
+   passes them (bool flags, 0-d int64 views, one-element slices) and as
+   Python ints. Bitwise comparison (tolerance 0: both versions sum integers
+   exactly and round the histograms to f32 once). Each line has the
+   kernel's median time over CUDA events around one wrapper call (ms), its
+   host time per call enqueued back to back (host_ms), its device time and
+   device operations per call from torch.profiler (device_ms, device_ops;
+   window_post must be exactly one kernel), the plain version's time, the
+   bytes it must move and the bound at 3.35 TB/s;
 4. main path: Trainer(device="cuda") on bench.py's 16 MB synthetic Zipfian
    corpus (seed 0), 1024 merges (vocab 256 -> 1280), byte-heuristic word
    starts; merges/s, recounts, final n and capacity, and every kernel's
@@ -40,9 +45,14 @@ Phases, each printing one JSON line:
    (tolerance 0; compaction outputs on their first `total` entries), on the
    inputs the main path gave it (recorded during phase 8) and on synthetic
    edge cases (all or none dropped, a ragged tail, ids >= 0x8000, random
-   sorted streams of any length); the time of each at the main path's
-   first call's shapes, its plain version's, one PyTorch call computing
-   the same function (library), and the byte bound.
+   sorted streams of any length; for the compactions also sizes of one
+   tile - 1, tile and tile + 1, 2^24 + 7, survivors only in the last of
+   4096 tiles, every entry kept and an unaligned view, each with 0, 1, 3
+   and 9 extras); at the main path's first call's shapes, the time of each
+   and of one PyTorch call computing the same function (library), timed in
+   turns, host_ms, device_ms and device_ops of both (compact_valid and
+   compact_mask at most one memset and one kernel), the plain version's
+   time and the byte bound.
 
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
@@ -154,18 +164,72 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def time_in_turns(torch, fns, reps: int) -> list[float]:
+    """Median CUDA-event time of each of ``fns``, called in turns (one call
+    of each per round, after one warm-up round), so that both see the same
+    state of the card."""
+    times = [[] for _ in fns]
+    for r in range(reps + 1):
+        for fn, ts in zip(fns, times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if r:
+                ts.append(start.elapsed_time(end))
+    return [statistics.median(ts) for ts in times]
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Median over ``reps`` calls of CUDA-event time (after one warm-up)."""
+    return time_in_turns(torch, [fn], reps)[0]
+
+
+def host_ms(torch, fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` over ``reps`` calls enqueued back to
+    back (no synchronisation between them), as a loop that launches it
+    pays; after one warm-up call."""
     fn()
-    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
+def device_profile(torch, fn, reps: int = 20, attempts: int = 3) -> dict:
+    """What one call of ``fn`` puts on the card, from torch.profiler's
+    key_averages() over ``reps`` calls: device_ms, the time of its kernels,
+    memsets and copies summed per call; device_ops, their number per call;
+    and the count and time of each per call by name. The session traces a
+    warm-up step of ``reps`` calls first and keeps only the second step (the
+    device tracer misses the first operations of a session); a session that
+    saw no device operation at all is run again, up to ``attempts`` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        us, ops, names = 0.0, 0, {}
+        for avg in prof.key_averages():
+            if avg.device_type != torch.autograd.DeviceType.CUDA or avg.key.startswith("ProfilerStep"):
+                continue
+            t = getattr(avg, "device_time_total", None) or getattr(avg, "cuda_time_total", 0.0)
+            us += t
+            ops += avg.count
+            names[avg.key[:80]] = {"per_call": avg.count / reps, "ms": t / 1e3 / reps}
+        if ops:
+            return {"device_ms": us / 1e3 / reps, "device_ops": ops / reps, "device_op_names": names}
+    raise AssertionError(f"the profiler saw no device operation in {attempts} sessions")
 
 
 def max_abs_diff(a, b) -> float:
@@ -280,6 +344,13 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
                        early_stop=st.early_stop, use_probes=m[8] <= kernels.N_PROBES, n_aff=m[8],
                        c_l=cnt2[0], c_r=cnt2[1], has_room=has_room, **sampled)
         wp_inputs.append((st.cand, st.cand_counts, m[3], m[4], st.merge_log, m[7], m[6], scalars))
+    # the same scalars in every form the wrapper reads in place: bool flags,
+    # 0-d int64 views of samp and cnt2, a one-element slice, Python ints
+    first = wp_inputs[0][7]
+    mixed = dict(first, l_tok=m[5][1], r_tok=m[5][3], c_r=first["c_r"].reshape(1),
+                 n_aff=m[8].reshape(1), early_stop=False)
+    mixed.update({k: int(mixed[k]) for k in ("theta", "ub_new", "fill", "merges_done", "next_id")})
+    wp_inputs.append(wp_inputs[0][:7] + (mixed,))
     for cand, counts, bl, br, log, probes, pcnt, scalars in wp_inputs:
         got = kernels.window_post(cand, counts, bl, br, log, probes=probes, pcnt=pcnt, **scalars)
         sc = kernels.pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
@@ -321,13 +392,17 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     for k, (kern, plain, nbytes) in timing.items():
         ms = time_ms(torch, kern, 20)
         plain_ms = time_ms(torch, plain, 3)
+        prof = dict(host_ms=host_ms(torch, kern), **device_profile(torch, kern))
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[k] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
-                       max_abs_err=err[k])
-        emit({"phase": "kernel", "name": k, "cases": len(cases) if k != "window_post" else 2,
-              "max_abs_err": err[k], "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+                       max_abs_err=err[k], **prof)
+        emit({"phase": "kernel", "name": k, "cases": len(cases) if k != "window_post" else len(wp_inputs),
+              "max_abs_err": err[k], "tolerance": 0, "ms": ms, "plain_ms": plain_ms, **prof,
               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes"})
     emit({"phase": "kernel_cases", "cases": details})
+    if round(rows["window_post"]["device_ops"]) != 1:
+        raise AssertionError(f"window_post put {rows['window_post']['device_op_names']} on the card "
+                             "per call, want exactly one kernel")
     return rows
 
 
@@ -387,6 +462,28 @@ def _u32_mask(n: int, rng, keep_p: float, hi: int):
     return v
 
 
+def compaction_edge_cases(torch, dev, tile: int) -> list:
+    """(label, vals) of the compaction edge cases, int32 words on the card
+    made from a seed (-1 drops an entry, kept words carry bits above 16):
+    sizes tile - 1, tile and tile + 1, 2^24 + 7, a 2^24 stream whose only
+    survivors lie in its last tile (a look-back over 4095 empty tiles),
+    every entry kept, and a view 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+
+    def words(n, keep_p):
+        v = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32)
+        return torch.where(torch.rand(n, generator=g, device=dev) < keep_p, v, -1)
+
+    big = 1 << 24
+    last_only = torch.full((big,), -1, dtype=torch.int32, device=dev)
+    last_only[big - tile + 1 :: 5] = words(len(range(big - tile + 1, big, 5)), 1.0) & 0xFFFF
+    return [(f"n={tile - 1}", words(tile - 1, 0.5)), (f"n={tile}", words(tile, 0.5)),
+            (f"n={tile + 1}", words(tile + 1, 0.5)), ("n=2^24+7", words(big + 7, 0.3)),
+            ("n=2^24 last tile only", last_only), ("n=2^24 all kept", words(big, 1.0)),
+            ("unaligned view", words(3 * tile + 9, 0.5)[1:])]
+
+
 def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
     """Phase 10: each tokenize kernel against its plain version on the card,
     on the inputs recorded from the main path and on synthetic edge cases;
@@ -436,6 +533,22 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
         err["expand_to_mask"] = max(err["expand_to_mask"],
                                     max_abs_diff([got], [kernels.expand_to_mask_plain(mask, src)]))
         cases["expand_to_mask"] += 1
+    # the compaction edge cases with 0, 1, 3 and 9 extras
+    tile = kernels.COMPACT_TILE
+    g = torch.Generator(device=dev)
+    g.manual_seed(78)
+    for label, vals in compaction_edge_cases(torch, dev, tile):
+        pool = torch.randint(-2**31, 2**31 - 1, (kernels.MAX_EXTRA, vals.numel()), generator=g, device=dev,
+                             dtype=torch.int32)
+        err["compact_valid"] = max(err["compact_valid"], compact_pair(
+            kernels.compact_valid, kernels.compact_mask_plain, vals, None))
+        cases["compact_valid"] += 1
+        for ne in (0, 1, 3, 9):
+            e = compact_pair(kernels.compact_mask, kernels.compact_mask_plain, vals, list(pool[:ne]))
+            if e != 0.0:
+                raise AssertionError(f"compact_mask disagrees on {label} with {ne} extras: {e}")
+            cases["compact_mask"] += 1
+        del pool
     for args, _ in calls["expand_to_mask"][:2]:
         got = kernels.expand_to_mask(*args)
         torch.cuda.synchronize()
@@ -498,15 +611,24 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
     }
     rows = {}
     for k, (kern, plain, library, nbytes, shape) in timing.items():
-        ms = time_ms(torch, kern, 20)
+        if library:  # the kernel and the library call in turns
+            ms, library_ms = time_in_turns(torch, [kern, library], 20)
+        else:
+            ms, library_ms = time_ms(torch, kern, 20), None
         plain_ms = time_ms(torch, plain, 3)
-        library_ms = time_ms(torch, library, 20) if library else None
+        prof = dict(host_ms=host_ms(torch, kern, 50), **device_profile(torch, kern))
+        lib_prof = device_profile(torch, library) if library else {}
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
-                       max_abs_err=err[k])
+                       max_abs_err=err[k], **prof)
         emit({"phase": "kernel", "name": k, "cases": cases[k], "max_abs_err": err[k], "tolerance": 0,
-              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
-              "bound_ms": bound_ms, "bound_by": "bytes", "shape": shape})
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **prof,
+              "library_device_ms": lib_prof.get("device_ms"), "library_device_ops": lib_prof.get("device_ops"),
+              "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes", "shape": shape})
+    for k in ("compact_valid", "compact_mask"):
+        if round(rows[k]["device_ops"]) > 2:
+            raise AssertionError(f"{k} put {rows[k]['device_op_names']} on the card per call, "
+                                 "want at most one memset and one kernel")
     return rows
 
 
@@ -547,9 +669,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     paths = build.build_all()
-    build.load()
+    tile = build.load()["compact_mask"].cm_tile_entries()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [p.name for p in paths.values()]})
+    if tile != kernels.COMPACT_TILE:
+        raise AssertionError(f"compact_mask.cu tiles {tile} entries, ops/kernels.py says {kernels.COMPACT_TILE}")
 
     t0 = time.perf_counter()
     corpus = synth_corpus(CORPUS_BYTES, seed=0)

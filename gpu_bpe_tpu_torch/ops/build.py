@@ -9,9 +9,9 @@ The libraries land in ``gpu_bpe_tpu_torch/_build/`` (git-ignored), named by
 a hash of the source, the shared header and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. They are bound with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, sizes as
-``c_longlong``, and each entry point returns its ``cudaGetLastError()``,
-which the wrappers in ``ops/kernels.py`` and ``ops/stab_kernels.py``
-raise on. A failed build raises.
+``c_longlong``, host blocks of packed device addresses as ``bytes``, and
+each entry point returns its ``cudaGetLastError()``, which the wrappers in
+``ops/kernels.py`` and ``ops/stab_kernels.py`` raise on. A failed build raises.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
+_B = ctypes.c_char_p  # a host block of packed addresses (bytes), read by the entry point
 # argument types of each library's entry points (see the .cu files)
 _SIGNATURES = {
     "merge_compact_tracked": {
@@ -44,10 +45,11 @@ _SIGNATURES = {
         "mc_scratch_words": [_I],
     },
     "count_pairs2": {"count_pairs2": [_P, _P, _I, _P, _P, _P, _P, _P]},
-    "window_post": {"window_post": [_P] * 6 + [_I] + [_P] * 5},
+    "window_post": {"window_post": [_B] + [_P] * 7 + [_I] + [_P] * 5},
     "compact_mask": {
-        "compact_mask": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+        "compact_mask": [_P, _I, _B, _B, _I, _P, _P, _P, _P],
         "cm_scratch_words": [_I],
+        "cm_tile_entries": [],
     },
     "expand_to_mask": {
         "expand_to_mask": [_P, _I, _P, _I, _P, _P, _P],
@@ -59,7 +61,8 @@ _SIGNATURES = {
     },
 }
 _RESTYPES = {name: ctypes.c_longlong
-             for name in ("mc_scratch_words", "cm_scratch_words", "em_scratch_words", "of_scratch_words")}
+             for name in ("mc_scratch_words", "cm_scratch_words", "cm_tile_entries", "em_scratch_words",
+                          "of_scratch_words")}
 
 
 def _nvcc() -> str:

@@ -14,7 +14,8 @@ Storage conventions (shared with the CUDA sources):
   scalar: int64, a pair id holding its unsigned 32-bit value, so every
   comparison of pair ids is in unsigned order;
 * scalars are 0-d int64 tensors on the stream's device (Python ints are
-  accepted and copied there), so the three launches of a merge need no
+  accepted and copied there; ``window_post`` also takes bool flags and
+  reads every scalar in place), so the three launches of a merge need no
   host read between them;
 * the compaction kernels take and return u32 words as int32 tensors of
   the same bits (``INVALID`` is -1 there), and boolean masks.
@@ -31,6 +32,7 @@ meaningful when its weight is > 0.
 from __future__ import annotations
 
 import ctypes
+import struct
 from collections import Counter
 
 import torch
@@ -53,14 +55,16 @@ def _scalar(x, device) -> torch.Tensor:
     return torch.tensor(int(x), dtype=torch.int64, device=device)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor) -> int:
+    """Device address of ``t``, for a ``c_void_p`` argument (ctypes takes the
+    int as it is, with no wrapper object per argument)."""
+    return t.data_ptr()
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
+def _stream(device: torch.device) -> int:
     """PyTorch's current stream on ``device``; the caller launches inside
     ``torch.cuda.device(device)`` so that the kernel runs on that card."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _check(rc: int, name: str) -> None:
@@ -353,9 +357,9 @@ def window_post_plain(sc, cand, counts, bins_l, bins_r, log):
 
 def pack_scalars(device, *, probes, pcnt, **scalars) -> torch.Tensor:
     """window_post's packed scalar vector: int64 [N_SCALARS + 2 * N_PROBES]
-    = the scalars in ``_SCALAR_ORDER``, the probe pairs, the probe counts."""
-    if set(scalars) != set(_SCALAR_ORDER):
-        raise TypeError(f"window_post scalars: want {sorted(_SCALAR_ORDER)}, got {sorted(scalars)}")
+    = the scalars in ``_SCALAR_ORDER``, the probe pairs, the probe counts
+    (the plain version's input)."""
+    _check_names(scalars)
     return torch.cat([
         torch.stack([_scalar(scalars[k], device) for k in _SCALAR_ORDER]),
         probes.to(device=device, dtype=torch.int64).reshape(N_PROBES),
@@ -363,19 +367,71 @@ def pack_scalars(device, *, probes, pcnt, **scalars) -> torch.Tensor:
     ])
 
 
+_SCALAR_NAMES = frozenset(_SCALAR_ORDER)
+_SCALAR_BYTES = {torch.int64: 8, torch.bool: 1}
+# window_post.cu's ScalarRefs: the scalars' device addresses, then their
+# element sizes in bytes, in _SCALAR_ORDER
+_REFS = struct.Struct(f"<{N_SCALARS}Q{N_SCALARS}i")
+
+
+def _scalar_bytes(name: str, x: torch.Tensor, device: torch.device) -> int:
+    """Element size of a window_post scalar tensor; raises unless it is one
+    int64 or bool element on ``device``."""
+    size = _SCALAR_BYTES.get(x.dtype)
+    if size is None or x.numel() != 1 or x.device != device:
+        raise ValueError(f"window_post scalar {name}: want one int64 or bool element on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    return size
+
+
+def _check_names(scalars: dict) -> None:
+    if scalars.keys() != _SCALAR_NAMES:
+        raise TypeError(f"window_post scalars: want {sorted(_SCALAR_ORDER)}, got {sorted(scalars)}")
+
+
+def scalar_refs(device, scalars: dict) -> tuple[bytes, torch.Tensor | None]:
+    """Where window_post's scalars live on ``device``, for the kernel to read
+    them in place: window_post.cu's ``ScalarRefs`` packed as ``_REFS``, and
+    the int64 tensor holding the scalars given as Python ints (one
+    ``torch.tensor`` for all of them, None when every scalar is a tensor),
+    which the caller keeps alive across the launch. Raises unless each
+    tensor is one int64 or bool element on ``device``."""
+    _check_names(scalars)
+    vals = [scalars[k] for k in _SCALAR_ORDER]
+    ints = [int(x) for x in vals if not isinstance(x, torch.Tensor)]
+    held = torch.tensor(ints, dtype=torch.int64, device=device) if ints else None
+    addr = held.data_ptr() if ints else 0
+    ptrs, sizes = [], []
+    for k, x in zip(_SCALAR_ORDER, vals):
+        if isinstance(x, torch.Tensor):
+            sizes.append(_scalar_bytes(k, x, device))
+            ptrs.append(x.data_ptr())
+        else:
+            ptrs.append(addr)
+            sizes.append(8)
+            addr += 8
+    return _REFS.pack(*ptrs, *sizes), held
+
+
 def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     """Post-merge window update (counterpart of the Pallas ``window_post``).
 
-    ``log`` is the int64 merge log, flat ``[BATCH_MERGES * 3]``. The keyword
-    scalars are those of ``_SCALAR_ORDER`` (0-d tensors or ints; ``count``
-    is the merged pair's count, ``has_room`` already includes the active
-    gate). Returns ``(cand2, counts2, log2, sout)`` with ``sout`` int64
-    ``[8]`` = (merges_done2, fill2, early2, ub_new2, pend_count, pend_cert,
-    next_id2, pend_pair), pair ids and next_id as unsigned values.
+    ``log`` is the int64 merge log, flat ``[BATCH_MERGES * 3]``; ``probes``
+    and ``pcnt`` are int64 ``[N_PROBES]``. The keyword scalars are those of
+    ``_SCALAR_ORDER``: Python ints or one-element int64 or bool tensors on
+    the window's device, views included (``count`` is the merged pair's
+    count, ``has_room`` already includes the active gate). On the card the
+    kernel reads each tensor in place: one launch, nothing else. Returns
+    ``(cand2, counts2, log2, sout)`` with ``sout`` int64 ``[8]`` =
+    (merges_done2, fill2, early2, ub_new2, pend_count, pend_cert, next_id2,
+    pend_pair), pair ids and next_id as unsigned values.
     """
     dev = cand.device
-    sc = pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
-    if _on_cpu(cand, counts, bins_l, bins_r, log):
+    if _on_cpu(cand, counts, bins_l, bins_r, log, probes, pcnt):
+        for k, x in scalars.items():
+            if isinstance(x, torch.Tensor):
+                _scalar_bytes(k, x, dev)
+        sc = pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
         return window_post_plain(sc, cand, counts, bins_l, bins_r, log)
     from .build import load
 
@@ -384,21 +440,27 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     _require(bins_l, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_l")
     _require(bins_r, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_r")
     _require(log, torch.int64, None, "log")
-    cand2, counts2, log2 = torch.empty_like(cand), torch.empty_like(counts), torch.empty_like(log)
-    sout = torch.empty(8, dtype=torch.int64, device=dev)
+    _require(probes, torch.int64, (N_PROBES,), "probes")
+    _require(pcnt, torch.int64, (N_PROBES,), "pcnt")
+    refs, held = scalar_refs(dev, scalars)  # `held` stays alive until the launch is enqueued
+    n_log = log.shape[0]
+    out = torch.empty(2 * W_SLOTS + n_log + 8, dtype=torch.int64, device=dev)
+    base = out.data_ptr()
     with torch.cuda.device(dev):
         rc = load()["window_post"].window_post(
-            _ptr(sc), _ptr(cand), _ptr(counts), _ptr(bins_l), _ptr(bins_r), _ptr(log),
-            log.shape[0], _ptr(cand2), _ptr(counts2), _ptr(log2), _ptr(sout), _stream(dev),
+            refs, _ptr(probes), _ptr(pcnt), _ptr(cand), _ptr(counts), _ptr(bins_l),
+            _ptr(bins_r), _ptr(log), n_log, base, base + 8 * W_SLOTS, base + 16 * W_SLOTS,
+            base + 8 * (2 * W_SLOTS + n_log), _stream(dev),
         )
     _check(rc, "window_post")
     LAUNCHES["window_post"] += 1
-    return cand2, counts2, log2, sout
+    return out[:W_SLOTS], out[W_SLOTS : 2 * W_SLOTS], out[2 * W_SLOTS : 2 * W_SLOTS + n_log], out[-8:]
 
 
 # ───────────────────────── compact_mask / compact_valid ──────────────────────
 
 MAX_EXTRA = 9  # arrays riding along in compact_mask (compact_mask.cu MAX_EXTRA)
+COMPACT_TILE = 4096  # entries per block of compact_mask.cu (TILE_N, cm_tile_entries())
 
 
 def compact_mask_plain(vals, extras=()):
@@ -426,15 +488,15 @@ def _compact_launch(name: str, vals, extras):
     lib = load()["compact_mask"]
     out = torch.empty_like(vals)
     outs = [torch.empty_like(e) for e in extras]
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(1, int(lib.cm_scratch_words(n))), dtype=torch.int64, device=dev)
-    ptrs_in = (ctypes.c_void_p * MAX_EXTRA)(*[e.data_ptr() for e in extras])
-    ptrs_out = (ctypes.c_void_p * MAX_EXTRA)(*[o.data_ptr() for o in outs])
+    # word 0 is the total, the rest the kernel's tile counter and status words
+    words = torch.empty(1 + int(lib.cm_scratch_words(n)), dtype=torch.int64, device=dev)
+    ptrs = struct.Struct(f"<{len(extras)}Q")
     with torch.cuda.device(dev):
         rc = lib.compact_mask(
-            _ptr(vals), n, ctypes.addressof(ptrs_in), ctypes.addressof(ptrs_out), len(extras),
-            _ptr(out), _ptr(total), _ptr(scratch), _stream(dev),
+            _ptr(vals), n, ptrs.pack(*[e.data_ptr() for e in extras]), ptrs.pack(*[o.data_ptr() for o in outs]),
+            len(extras), _ptr(out), words.data_ptr(), words.data_ptr() + 8, _stream(dev),
         )
+    total = words[0]
     _check(rc, name)
     LAUNCHES[name] += 1
     return [out, *outs], total

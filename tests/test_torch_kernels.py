@@ -8,6 +8,8 @@ exactly equal to a numpy ``np.add.at`` histogram of the same mass) and the
 positions of the heaviest weight; the Pallas token must lie in that set).
 """
 
+import struct
+
 import numpy as np
 import pytest
 import torch
@@ -301,12 +303,35 @@ def _wp_inputs(rng, *, big_bins=False, has_room=True, active=True, use_probes=Tr
     return cand, counts, bins_l, bins_r, log, probes, pcnt, scalars
 
 
+_WP_FLAGS = ("active", "early_stop", "use_probes", "l_ok", "r_ok", "has_room")
+
+
+def _scalar_form(sc: dict, form: str) -> dict:
+    """The scalars as Python values ("ints"), as 0-d int64 and bool tensors
+    ("tensors"), or as views into one int64 and one bool tensor, 0-d and
+    one-element slices, as the train step passes ``cnt2[0]`` ("views")."""
+    if form == "ints":
+        return sc
+    if form == "tensors":
+        return {k: torch.tensor(bool(v) if k in _WP_FLAGS else int(v)) for k, v in sc.items()}
+    ints = [k for k in sc if k not in _WP_FLAGS]
+    big = torch.tensor([0] + [int(sc[k]) for k in ints], dtype=torch.int64)
+    flags = torch.tensor([True] + [bool(sc[k]) for k in _WP_FLAGS])
+    out = {k: big[1 + i] if i % 2 else big[1 + i : 2 + i] for i, k in enumerate(ints)}
+    out.update({k: flags[1 + i] for i, k in enumerate(_WP_FLAGS)})
+    return out
+
+
 @pytest.mark.parametrize(
     "case",
     [dict(), dict(hi=True), dict(big_bins=True), dict(has_room=False), dict(active=False),
-     dict(use_probes=False), dict(hi=True, big_bins=True)],
+     dict(use_probes=False), dict(hi=True, big_bins=True), dict(form="tensors"),
+     dict(form="views", hi=True), dict(form="views", has_room=False, big_bins=True),
+     dict(form="tensors", active=False)],
 )
 def test_window_post_identical_inputs(case):
+    case = dict(case)
+    form = case.pop("form", "ints")
     rng = np.random.default_rng(len(str(case)))
     cand, counts, bins_l, bins_r, log, probes, pcnt, sc = _wp_inputs(rng, **case)
     jsc = {k: (jnp.uint32(v) if k in ("pair", "next_id", "l_tok", "r_tok") else jnp.asarray(v))
@@ -320,7 +345,7 @@ def test_window_post_identical_inputs(case):
         torch.from_numpy(cand.astype(np.int64)), torch.from_numpy(counts.astype(np.int64)),
         torch.from_numpy(bins_l), torch.from_numpy(bins_r), torch.from_numpy(log.astype(np.int64)),
         probes=torch.from_numpy(probes.astype(np.int64)), pcnt=torch.from_numpy(pcnt.astype(np.int64)),
-        **sc,
+        **_scalar_form(sc, form),
     )
     p = [x.numpy() for x in p]
     np.testing.assert_array_equal(p[0], j[0].astype(np.int64))
@@ -350,6 +375,55 @@ def test_window_post_unsigned_winner_order():
     )
     sout = p[3].tolist()
     assert sout[7] == pack_pair(0x7000, 5) and sout[4] == 500 and sout[5] == 1
+
+
+def _wp_call(sc):
+    rng = np.random.default_rng(5)
+    cand, counts, bins_l, bins_r, log, probes, pcnt, _ = _wp_inputs(rng)
+    return tk.window_post(
+        torch.from_numpy(cand.astype(np.int64)), torch.from_numpy(counts.astype(np.int64)),
+        torch.from_numpy(bins_l), torch.from_numpy(bins_r), torch.from_numpy(log.astype(np.int64)),
+        probes=torch.from_numpy(probes.astype(np.int64)), pcnt=torch.from_numpy(pcnt.astype(np.int64)), **sc,
+    )
+
+
+@pytest.mark.parametrize(
+    "name,bad",
+    [("count", torch.tensor(5, dtype=torch.int32)), ("theta", torch.tensor(3.0)),
+     ("c_l", torch.tensor([1, 2])), ("active", torch.ones(2, dtype=torch.bool)),
+     ("fill", torch.tensor(130, device="meta"))],
+)
+def test_window_post_rejects_bad_scalars(name, bad):
+    """A scalar must be one int64 or bool element on the window's device."""
+    _, _, _, _, _, _, _, sc = _wp_inputs(np.random.default_rng(5))
+    _wp_call(sc)  # the same call with good scalars runs
+    with pytest.raises(ValueError, match=name):
+        _wp_call({**sc, name: bad})
+    with pytest.raises(TypeError):
+        _wp_call({k: v for k, v in sc.items() if k != name})
+
+
+@pytest.mark.parametrize("form", ["tensors", "views", "mixed"])
+def test_scalar_refs_in_scalar_order(form):
+    """The pointer struct window_post.cu reads lists each scalar's address and
+    element size in ``_SCALAR_ORDER``; Python ints land in one held tensor."""
+    _, _, _, _, _, _, _, sc = _wp_inputs(np.random.default_rng(9))
+    given = _scalar_form(sc, "views" if form == "views" else "tensors")
+    if form == "mixed":
+        given.update({k: sc[k] for k in ("pair", "theta", "early_stop", "r_tok")})
+    refs, held = tk.scalar_refs(torch.device("cpu"), given)
+    assert len(tk._SCALAR_ORDER) == tk.N_SCALARS
+    fields = struct.unpack(f"<{tk.N_SCALARS}Q{tk.N_SCALARS}i", refs)
+    ptrs, sizes = fields[: tk.N_SCALARS], fields[tk.N_SCALARS :]
+    for i, k in enumerate(tk._SCALAR_ORDER):
+        x = given[k]
+        if isinstance(x, torch.Tensor):
+            assert (ptrs[i], sizes[i]) == (x.data_ptr(), 1 if x.dtype == torch.bool else 8)
+        else:
+            assert sizes[i] == 8
+            slot = (ptrs[i] - held.data_ptr()) // 8
+            assert int(held[slot]) == int(sc[k])
+    assert (held is None) == (form != "mixed")
 
 
 def test_wrappers_reject_unsupported_devices():

@@ -64,6 +64,23 @@ def _compact_case(name, rng):
         v[BLOCK - 100 : 2 * BLOCK + 100] = 0xFFFFFFFF
         v[: BLOCK // 2] = 0xFFFFFFFF
         return v, 1
+    tile = tk.COMPACT_TILE  # entries per block of the CUDA kernel
+    straddle = {"tile_minus_1": (tile - 1, 0), "tile": (tile, 1), "tile_plus_1": (tile + 1, 3),
+                "two_tiles_plus_1": (2 * tile + 1, 9)}
+    if name in straddle:
+        n, n_extra = straddle[name]
+        v = payloads(n)
+        v[rng.random(n) < 0.5] = 0xFFFFFFFF
+        v[-1] = 0x1234  # the last entry survives
+        return v, n_extra
+    if name == "last_tile_only":
+        # survivors only in the last (ragged) tile: a long look-back over
+        # empty tiles on the card
+        v = np.full(5 * tile + 33, 0xFFFFFFFF, np.uint32)
+        v[4 * tile + 1 :: 3] = payloads(v[4 * tile + 1 :: 3].size)
+        return v, 3
+    if name == "all_kept":
+        return payloads(3 * tile - 5), 9
     if name == "high_bits":
         # payloads with bits above 16 set: the primary keeps the low 16
         v = payloads(BLOCK + 77, hi=0xFFFFFFFF)
@@ -73,7 +90,8 @@ def _compact_case(name, rng):
     raise KeyError(name)
 
 
-CASES = ["random", "all_dropped", "none_dropped", "ragged", "block_runs", "high_bits"]
+CASES = ["random", "all_dropped", "none_dropped", "ragged", "block_runs", "high_bits",
+         "tile_minus_1", "tile", "tile_plus_1", "two_tiles_plus_1", "last_tile_only", "all_kept"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -93,7 +111,8 @@ def test_compact_mask_matches_pallas(name):
     np.testing.assert_array_equal(_u32(got[0])[:total], prim[prim != 0xFFFFFFFF] & 0xFFFF)
 
 
-@pytest.mark.parametrize("name", ["random", "all_dropped", "ragged", "high_bits"])
+@pytest.mark.parametrize("name", ["random", "all_dropped", "ragged", "high_bits", "tile_minus_1", "tile",
+                                  "tile_plus_1", "last_tile_only"])
 def test_compact_valid_matches_pallas(name):
     prim, _ = _compact_case(name, np.random.default_rng(7))
     want, want_total = pk.compact_valid(jnp.asarray(prim), interpret=True)
