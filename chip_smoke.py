@@ -11,15 +11,23 @@ Phases, each printing one JSON line:
    on inputs made from a numpy seed at the main path's shapes (capacity
    2^20, ~0.9 M live symbols, a live 256-slot window): affected sets in each
    16-probe tier and above 64, ids >= 0x8000, overlap runs and word starts
-   at block edges, garbage past n; window_post's scalars as the main path
-   passes them (bool flags, 0-d int64 views, one-element slices) and as
-   Python ints. Bitwise comparison (tolerance 0: both versions sum integers
-   exactly and round the histograms to f32 once). Each line has the
-   kernel's median time over CUDA events around one wrapper call (ms), its
-   host time per call enqueued back to back (host_ms), its device time and
-   device operations per call from torch.profiler (device_ms, device_ops;
-   window_post must be exactly one kernel), the plain version's time, the
-   bytes it must move and the bound at 3.35 TB/s;
+   at block edges, garbage past n; the merge's hard cases: an (a,a) run
+   longer than a 4096-entry compaction tile (a whole tile with no
+   survivor), a site at cap - 2 with n == cap, n in {0, 1, 2}, every
+   capacity of the shrink ladder from 2^19 down to 2^11 called one after
+   another (the cached scratch must stay clean across capacities), an
+   unaligned view and calls on a second stream; count_pairs2 on pairs
+   whose token Z sits only at the first and the last live position;
+   window_post's scalars as the main path passes them (bool flags, 0-d
+   int64 views, one-element slices) and as Python ints. Bitwise comparison
+   (tolerance 0: both versions sum integers exactly and round the
+   histograms to f32 once). Each line has the kernel's median time over
+   CUDA events around one wrapper call (ms), its host time per call
+   enqueued back to back (host_ms), its device time and device operations
+   per call from torch.profiler (device_ms, device_ops; window_post and
+   count_pairs2 must be exactly one kernel, merge_compact_tracked at most
+   two), the plain version's time, the bytes it must move and the bound
+   at 3.35 TB/s;
 4. main path: Trainer(device="cuda") on bench.py's 16 MB synthetic Zipfian
    corpus (seed 0), 1024 merges (vocab 256 -> 1280), byte-heuristic word
    starts; merges/s, recounts, final n and capacity, and every kernel's
@@ -284,6 +292,70 @@ def window_for(rng, toks, pair, n_aff, n_other=100):
     return cand, counts
 
 
+def small_stream(rng, cap, n, toks, ws_p=0.1):
+    """A cap-``cap`` stream of ``n`` random symbols over ``toks`` (word
+    starts with probability ws_p), pair-matching garbage past n."""
+    toks = np.asarray(toks, np.uint32)
+    sym = np.zeros(cap, np.uint32)
+    sym[:n] = rng.choice(toks, size=n)
+    sym[:n] |= (rng.random(n) < ws_p).astype(np.uint32) << 16
+    w = np.zeros(cap, np.int32)
+    w[:n] = rng.integers(1, 400, size=n)
+    sym[n:] = np.tile(toks[:2], (cap - n + 1) // 2)[: cap - n]
+    w[n:] = 77
+    return sym, w
+
+
+def merge_edge_cases(rng, toks):
+    """(label, sym, w, n, pair, new_id, cand, counts) of the merge's hard
+    cases: an (a,a) run longer than a 4096-entry compaction tile (it covers
+    the whole tile [4096, 8192) so that tile keeps nothing, and crosses its
+    edges), a site at cap - 2 with n == cap, n in {0, 1, 2}, and every
+    capacity of the trainer's shrink ladder from 2^19 down to 2^11, called
+    one after another (each call at another capacity than the last)."""
+    a, b = toks[0], toks[1]
+    pair, pair_aa = (a << 16) | b, (a << 16) | a
+    out = []
+    sym, w = small_stream(rng, 1 << 16, 60_000, toks)
+    sym[3000:15_000] = a  # one word: an (a,a) run over tiles 0-3
+    sym[20_000:20_010] = a
+    sym[20_005] |= 1 << 16  # a word start splits a run
+    out.append(("run>tile", sym, w, 60_000, pair_aa, 300, *window_for(rng, toks, pair_aa, 20)))
+    sym, w = small_stream(rng, 1 << 12, 1 << 12, toks)
+    sym[-2:] = [a, b]
+    out.append(("n=cap site at cap-2", sym, w, 1 << 12, pair, 300, *window_for(rng, toks, pair, 8)))
+    for n in (0, 1, 2):
+        sym, w = small_stream(rng, 1 << 11, n, toks)
+        sym[:2] = [a, b]  # a site when n == 2; at n == 1 its b is garbage
+        out.append((f"n={n}", sym, w, n, pair, 300, *window_for(rng, toks, pair, 5)))
+    for k in range(19, 10, -1):
+        cap = 1 << k
+        n = cap // 2 + 33 + k
+        sym, w = small_stream(rng, cap, n, toks)
+        sym[1:n:97], sym[2:n:97] = a, b  # sites at a fixed stride
+        out.append((f"cap=2^{k}", sym, w, n, pair, 0xFF00, *window_for(rng, toks, pair, 40)))
+    return out
+
+
+def count_edge_cases(rng, toks):
+    """(label, sym, w, n, pair1, pair2) of count_pairs2 cases whose pairs
+    hold a token Z only at the first and the last live position, at
+    several n (16-byte vector tails of several lengths, n == cap), and n in
+    {0, 1, 2}."""
+    z = 0x7777
+    out = []
+    for cap, n in ((1 << 11, 1 << 11), (1 << 11, 2045), (1 << 20, N_LIVE), (1 << 20, N_LIVE + 1),
+                   (1 << 20, N_LIVE + 2), (1 << 20, 1 << 20), (1 << 11, 0), (1 << 11, 1), (1 << 11, 2)):
+        sym, w = small_stream(rng, cap, n, toks)
+        if n >= 3:
+            sym[0], sym[n - 1], sym[1] = z | (1 << 16), z, sym[1] & 0xFFFF
+            p1, p2 = (z << 16) | int(sym[1] & 0xFFFF), (int(sym[n - 2] & 0xFFFF) << 16) | z
+        else:
+            p1, p2 = (toks[0] << 16) | toks[1], (toks[1] << 16) | toks[0]
+        out.append((f"z-ends cap={cap} n={n}", sym, w, n, p1, p2))
+    return out
+
+
 def kernel_phase(torch, kernels, ts, real_stream, dev):
     """Phase 3: every kernel against its plain version on the card."""
     rng = np.random.default_rng(1234)
@@ -297,6 +369,7 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
             cand, counts = window_for(rng, toks, pair, n_aff)
             cases.append((f"{'hi' if toks is toks_hi else 'lo'}/aff{n_aff}", sym, w, N_LIVE, pair,
                           new_id, cand, counts))
+    cases += merge_edge_cases(rng, toks_lo)
     # the real main-path stream, its real first winner and recount window
     rs = ts.init_state(real_stream.symbols, real_stream.weights, real_stream.n, 256, dev)
     rs = ts._ensure_pending(rs, certified=False)
@@ -325,6 +398,42 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         err["count_pairs2"] = max(err["count_pairs2"], max_abs_diff([c_got], [c_want]))
         details.append({"case": name, "n_aff": int(got[8]), "n_new": int(n2), "max_abs_err": e,
                         "samp": got[5].tolist(), "created_counts": c_got.tolist()})
+    for name, sym, w, n, p1, p2 in count_edge_cases(rng, toks_lo):
+        args = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev),
+                torch.tensor(n, device=dev), torch.tensor(p1, device=dev), torch.tensor(p2, device=dev))
+        c_got = kernels.count_pairs2(*args)
+        torch.cuda.synchronize()
+        e = max_abs_diff([c_got], [kernels.count_pairs2_plain(*args)])
+        err["count_pairs2"] = max(err["count_pairs2"], e)
+        details.append({"case": f"count {name}", "max_abs_err": e, "counts": c_got.tolist()})
+    # unaligned views (4 bytes past the allocation) and calls on a second
+    # stream: each stream has its own cached scratch
+    _, sym, w, n, pair, new_id, cand, counts = cases[1]
+    base = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev))
+    views = (base[0][1:], base[1][1:])
+    rest = (torch.tensor(n - 1, device=dev), torch.tensor(pair, device=dev), torch.tensor(new_id, device=dev),
+            torch.from_numpy(cand).to(dev), torch.from_numpy(counts).to(dev))
+    side = torch.cuda.Stream(device=dev)
+    for label, inputs, stream in (("unaligned view", views, None), ("second stream", base, side),
+                                  ("second stream again", views, side)):
+        args = inputs + rest
+        slots = (torch.tensor((97 << 16) | 98, device=dev), torch.tensor((98 << 16) | 97, device=dev))
+        if stream is None:
+            got = kernels.merge_compact_tracked(*args)
+            c_got = kernels.count_pairs2(got[0], got[1], got[2], *slots)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                got = kernels.merge_compact_tracked(*args)
+                c_got = kernels.count_pairs2(got[0], got[1], got[2], *slots)
+            stream.synchronize()
+        torch.cuda.synchronize()
+        want = kernels.merge_compact_tracked_plain(*args)
+        e = max_abs_diff(got, want)
+        ce = max_abs_diff([c_got], [kernels.count_pairs2_plain(want[0], want[1], want[2], *slots)])
+        err["merge_compact_tracked"] = max(err["merge_compact_tracked"], e)
+        err["count_pairs2"] = max(err["count_pairs2"], ce)
+        details.append({"case": label, "n_new": int(got[2]), "max_abs_err": max(e, ce)})
 
     # window_post on the real case's merge outputs, exactly as the main path
     # builds its inputs
@@ -402,6 +511,12 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     emit({"phase": "kernel_cases", "cases": details})
     if round(rows["window_post"]["device_ops"]) != 1:
         raise AssertionError(f"window_post put {rows['window_post']['device_op_names']} on the card "
+                             "per call, want exactly one kernel")
+    if round(rows["merge_compact_tracked"]["device_ops"]) > 2:
+        raise AssertionError(f"merge_compact_tracked put {rows['merge_compact_tracked']['device_op_names']} "
+                             "on the card per call, want at most two kernels")
+    if round(rows["count_pairs2"]["device_ops"]) != 1:
+        raise AssertionError(f"count_pairs2 put {rows['count_pairs2']['device_op_names']} on the card "
                              "per call, want exactly one kernel")
     return rows
 
@@ -674,6 +789,10 @@ def main() -> int:
           "libraries": [p.name for p in paths.values()]})
     if tile != kernels.COMPACT_TILE:
         raise AssertionError(f"compact_mask.cu tiles {tile} entries, ops/kernels.py says {kernels.COMPACT_TILE}")
+    arena = build.load()["merge_compact_tracked"].mc_arena_words()
+    if arena != kernels.ARENA_WORDS:
+        raise AssertionError(f"merge_compact_tracked.cu's arena has {arena} words, "
+                             f"ops/kernels.py says {kernels.ARENA_WORDS}")
 
     t0 = time.perf_counter()
     corpus = synth_corpus(CORPUS_BYTES, seed=0)

@@ -41,10 +41,14 @@ _B = ctypes.c_char_p  # a host block of packed addresses (bytes), read by the en
 # argument types of each library's entry points (see the .cu files)
 _SIGNATURES = {
     "merge_compact_tracked": {
-        "merge_compact_tracked": [_P, _P, _I] + [_P] * 15,
+        "merge_compact_tracked": [_P, _P, _I] + [_P] * 9,
         "mc_scratch_words": [_I],
+        "mc_arena_words": [],
     },
-    "count_pairs2": {"count_pairs2": [_P, _P, _I, _P, _P, _P, _P, _P]},
+    "count_pairs2": {
+        "count_pairs2": [_P, _P, _I] + [_P] * 6,
+        "cp_scratch_words": [],
+    },
     "window_post": {"window_post": [_B] + [_P] * 7 + [_I] + [_P] * 5},
     "compact_mask": {
         "compact_mask": [_P, _I, _B, _B, _I, _P, _P, _P, _P],
@@ -61,8 +65,8 @@ _SIGNATURES = {
     },
 }
 _RESTYPES = {name: ctypes.c_longlong
-             for name in ("mc_scratch_words", "cm_scratch_words", "cm_tile_entries", "em_scratch_words",
-                          "of_scratch_words")}
+             for name in ("mc_scratch_words", "mc_arena_words", "cp_scratch_words", "cm_scratch_words",
+                          "cm_tile_entries", "em_scratch_words", "of_scratch_words")}
 
 
 def _nvcc() -> str:

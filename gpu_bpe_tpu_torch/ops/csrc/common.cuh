@@ -78,4 +78,65 @@ __device__ __forceinline__ long long scan_block_counts(long long* words, long lo
     return carry;
 }
 
+// ── Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", NVIDIA 2016), shared by the one-pass
+// compactions (compact_mask.cu, merge_compact_tracked.cu). Tile ids come
+// from an atomic counter, so a tile that waits on a predecessor was
+// scheduled after it. Each tile publishes a 64-bit status word: the flag in
+// the top two bits, the value below them, in one store.
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr unsigned long long ST_COUNT = 1ull << 62;   // value = this tile's count
+constexpr unsigned long long ST_PREFIX = 1ull << 63;  // value = count of tiles 0..this one
+constexpr unsigned long long ST_VALUE = (1ull << 62) - 1;
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+    return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
+    *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// Exclusive prefix of tile `tile` > 0, run by one full warp. Lane i reads
+// the status of tile `pred - i` of the current window of 32 predecessors,
+// the window waits until all of them have published, the counts are summed
+// down to the nearest published prefix (inclusive), and the search ends
+// there or moves 32 tiles back. Tiles before 0 read as a prefix of 0.
+__device__ inline unsigned long long look_back(const unsigned long long* status, long long tile, int lane) {
+    unsigned long long excl = 0;
+    for (long long pred = tile - 1 - lane;; pred -= 32) {
+        unsigned long long s;
+        do {
+            s = pred >= 0 ? load_status(status + pred) : ST_PREFIX;
+        } while (__any_sync(FULL_MASK, s == 0));
+        const unsigned prefixes = __ballot_sync(FULL_MASK, (s & ST_PREFIX) != 0);
+        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+        unsigned long long v = lane <= stop ? (s & ST_VALUE) : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL_MASK, v, d);
+        excl += v;
+        if (prefixes) return excl;
+    }
+}
+
+// Run by warp 0 of a tile of 32 (load, warp) groups: exclusive scan, in
+// place, of the 32 group counts in `group_off`; lane 31 stores the tile's
+// count in *count and publishes it in the tile's status word (as a prefix
+// for tile 0).
+__device__ __forceinline__ void scan_and_publish(int* group_off, unsigned long long* status, long long tile,
+                                                 int lane, int* count) {
+    const int x = group_off[lane];
+    int inc = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, inc, d);
+        if (lane >= d) inc += y;
+    }
+    group_off[lane] = inc - x;
+    if (lane == 31) {
+        *count = inc;
+        store_status(status + tile, (tile == 0 ? ST_PREFIX : ST_COUNT) | (unsigned long long)inc);
+    }
+}
+
 }  // namespace bpe

@@ -58,7 +58,6 @@ namespace {
 
 constexpr int MAX_EXTRA = 9;  // 1 + 2 * (stab levels - 1) with at most 5 levels
 constexpr uint32_t DROP = 0xFFFFFFFFu;
-constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 256;
 constexpr int VEC = 4;     // u32 entries per 16-byte load
 constexpr int LOADS = 4;   // 16-byte loads per thread
@@ -67,45 +66,11 @@ constexpr int TILE_N = THREADS * VEC * LOADS;  // entries per tile
 constexpr int MIN_BLOCKS = 5;  // resident blocks per SM the registers must allow
 static_assert(LOADS * WARPS == 32, "one warp scans the per-(load, warp) counts");
 
-// Tile status word: the flag in the top two bits, the value below them.
-constexpr unsigned long long ST_COUNT = 1ull << 62;   // value = this tile's count
-constexpr unsigned long long ST_PREFIX = 1ull << 63;  // value = count of tiles 0..this one
-constexpr unsigned long long ST_VALUE = (1ull << 62) - 1;
-
+// The status words, look_back and scan_and_publish are in common.cuh.
 struct Extras {
     const uint32_t* in[MAX_EXTRA];
     uint32_t* out[MAX_EXTRA];
 };
-
-__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
-    return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long v) {
-    *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-// Exclusive prefix of tile `tile` > 0, run by one full warp. Lane i reads
-// the status of tile `pred - i` of the current window of 32 predecessors,
-// the window waits until all of them have published, the counts are summed
-// down to the nearest published prefix (inclusive), and the search ends
-// there or moves 32 tiles back. Tiles before 0 read as a prefix of 0.
-__device__ unsigned long long look_back(const unsigned long long* status, long long tile, int lane) {
-    unsigned long long excl = 0;
-    for (long long pred = tile - 1 - lane;; pred -= 32) {
-        unsigned long long s;
-        do {
-            s = pred >= 0 ? load_status(status + pred) : ST_PREFIX;
-        } while (__any_sync(FULL, s == 0));
-        const unsigned prefixes = __ballot_sync(FULL, (s & ST_PREFIX) != 0);
-        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-        unsigned long long v = lane <= stop ? (s & ST_VALUE) : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
-        excl += v;
-        if (prefixes) return excl;
-    }
-}
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 compact_tiles(const uint32_t* __restrict__ vals, long long n, long long ntiles, uint32_t* __restrict__ out,
@@ -155,7 +120,7 @@ compact_tiles(const uint32_t* __restrict__ vals, long long n, long long ntiles, 
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
             const bool kept = v[j][k] != DROP;
-            const unsigned b = __ballot_sync(FULL, kept);
+            const unsigned b = __ballot_sync(FULL_MASK, kept);
             r += __popc(b & below);
             warp_count += __popc(b);
             keep |= (unsigned)kept << (VEC * j + k);
@@ -168,20 +133,7 @@ compact_tiles(const uint32_t* __restrict__ vals, long long n, long long ntiles, 
     // warp 0 scans the 32 counts into in-tile offsets and publishes the
     // tile's count; the block stages its survivors while warp 0 then looks
     // back for the tile's offset in the output
-    if (warp == 0) {
-        const int x = load_off[lane];
-        int inc = x;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(FULL, inc, d);
-            if (lane >= d) inc += y;
-        }
-        load_off[lane] = inc - x;
-        if (lane == 31) {
-            s_count = inc;
-            store_status(status + tile, (tile == 0 ? ST_PREFIX : ST_COUNT) | (unsigned long long)inc);
-        }
-    }
+    if (warp == 0) scan_and_publish(load_off, status, tile, lane, &s_count);
     __syncthreads();
     const int count = s_count;
 

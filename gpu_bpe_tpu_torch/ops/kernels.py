@@ -31,7 +31,7 @@ meaningful when its weight is > 0.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import struct
 from collections import Counter
 
@@ -55,6 +55,14 @@ def _scalar(x, device) -> torch.Tensor:
     return torch.tensor(int(x), dtype=torch.int64, device=device)
 
 
+def _dev_scalar(x, device: torch.device) -> torch.Tensor:
+    """``_scalar``, taking a 0-d int64 tensor already on ``device`` as it is
+    (the train step's scalars are such tensors)."""
+    if isinstance(x, torch.Tensor) and x.dtype is torch.int64 and x.dim() == 0 and x.device == device:
+        return x
+    return _scalar(x, device)
+
+
 def _ptr(t: torch.Tensor) -> int:
     """Device address of ``t``, for a ``c_void_p`` argument (ctypes takes the
     int as it is, with no wrapper object per argument)."""
@@ -62,14 +70,67 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 def _stream(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``; the caller launches inside
-    ``torch.cuda.device(device)`` so that the kernel runs on that card."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device`` as a raw handle (the lookup
+    Triton's launcher makes; ``torch.cuda.current_stream`` builds a Stream
+    object per call); the caller launches inside ``_on_device(device)`` so
+    that the kernel runs on that card."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def _on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device: nothing to
+    do when it already is (the usual case), else ``torch.cuda.device``."""
+    return _SAME_DEVICE if torch.cuda.current_device() == device.index else torch.cuda.device(device)
 
 
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+# Look-back and reduction scratch of merge_compact_tracked.cu and
+# count_pairs2.cu, by (kernel, device index, size, stream): zeroed once when
+# it is made; every call leaves it zeroed again, so no call clears it. A
+# stream orders the calls that share one.
+_SCRATCH: dict[tuple, torch.Tensor] = {}
+
+
+def cached_scratch(key: tuple, device: torch.device, words) -> torch.Tensor:
+    """The int64 scratch of ``key``, made zeroed with ``words()`` words on
+    ``device`` (on its current stream) at first use."""
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(int(words()), dtype=torch.int64, device=device)
+    return buf
+
+
+def _check_scratch(rc: int, name: str, key: tuple) -> None:
+    """``_check`` for a launch on cached scratch: a failed launch may leave
+    it dirty, so its entry is dropped before raising."""
+    if rc != 0:
+        _SCRATCH.pop(key, None)
+        _check(rc, name)
+
+
+# Small outputs of merge_compact_tracked and count_pairs2, by (kernel,
+# device index, stream): one allocation serves POOL_CALLS calls, each call
+# takes the next unused set of views and no set is handed out twice, so
+# every call's outputs are new memory. Making a view costs about as much
+# host time as an allocation, and a merge returns nine outputs.
+POOL_CALLS = 64
+_POOLS: dict[tuple, list] = {}
+
+
+def _pooled(key: tuple, make):
+    """The next unused item of ``key``'s pool; ``make()`` refills it with a
+    list of items when it is empty."""
+    pool = _POOLS.get(key)
+    if not pool:
+        pool = _POOLS[key] = make()
+    return pool.pop()
 
 
 def _require(t: torch.Tensor, dtype, shape=None, name="tensor") -> None:
@@ -183,6 +244,34 @@ def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
     return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt, probes, n_aff.to(torch.int64)
 
 
+# merge_compact_tracked.cu's output arena, in int64 words: n_new, the left
+# and right bins as 2 x 256 f32, samp[4], pcnt, probes, n_aff
+# (mc_arena_words() in the library)
+ARENA_NNEW = 0
+ARENA_BINS = 1
+ARENA_SAMP = ARENA_BINS + TRACK_SIDE * TRACK_SIDE  # 2 x 256 f32 fill 256 words
+ARENA_PCNT = ARENA_SAMP + 4
+ARENA_PROBES = ARENA_PCNT + N_PROBES
+ARENA_NAFF = ARENA_PROBES + N_PROBES
+ARENA_WORDS = ARENA_NAFF + 1
+_ARENA_SPLIT = (ARENA_BINS, ARENA_SAMP - ARENA_BINS, 4, N_PROBES, N_PROBES, 1)
+
+
+def merge_arenas(count: int, device) -> list:
+    """``count`` output arenas of ``merge_compact_tracked`` in one int64
+    ``[count, ARENA_WORDS]`` allocation, each as ``(address, (n_new,
+    bins_l, bins_r, samp, pcnt, probes, n_aff))``: the arena's device
+    address and its small outputs as views at the ``ARENA_*`` offsets, with
+    the plain version's shapes (a few view operations for all of them)."""
+    bulk = torch.empty(count, ARENA_WORDS, dtype=torch.int64, device=device)
+    n_new, bins, samp, pcnt, probes, n_aff = bulk.split(_ARENA_SPLIT, dim=1)
+    bins = bins.view(torch.float32).view(count, 2, TRACK_SIDE, TRACK_SIDE)
+    views = zip(n_new.squeeze(1).unbind(0), bins[:, 0].unbind(0), bins[:, 1].unbind(0), samp.unbind(0),
+                pcnt.unbind(0), probes.unbind(0), n_aff.squeeze(1).unbind(0))
+    base, row = bulk.data_ptr(), 8 * ARENA_WORDS
+    return [(base + i * row, v) for i, v in enumerate(views)]
+
+
 def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
     """One merge ``pair`` -> ``new_id`` with stable compaction, created-pair
     tracking and window-mode probe counts.
@@ -206,6 +295,9 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
       probe list (``window_probes``) and each probe's exact post-merge
       pair-stream count (valid for the first ``n_aff`` slots when
       ``n_aff <= N_PROBES``; nothing is probed otherwise).
+
+    On the card the small outputs are views of an allocation shared by
+    ``POOL_CALLS`` calls (``merge_arenas``), each call's its own.
     """
     if _on_cpu(symbols, weights, cand, counts):
         return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
@@ -217,27 +309,25 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
     _require(weights, torch.int32, (cap,), "weights")
     _require(cand, torch.int64, (W_SLOTS,), "cand")
     _require(counts, torch.int64, (W_SLOTS,), "counts")
-    n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
+    if cap < 1:
+        raise ValueError("merge_compact_tracked: empty stream")
+    n, pair, new_id = _dev_scalar(n, dev), _dev_scalar(pair, dev), _dev_scalar(new_id, dev)
     lib = load()["merge_compact_tracked"]
-    i64 = dict(dtype=torch.int64, device=dev)
-    sym2 = torch.empty(cap, dtype=torch.int32, device=dev)
-    w2 = torch.empty(cap, dtype=torch.int32, device=dev)
-    n_new = torch.empty((), **i64)
-    bins = torch.empty(2 * TRACK_SIDE, TRACK_SIDE, dtype=torch.float32, device=dev)
-    samp = torch.empty(4, **i64)
-    pcnt = torch.empty(N_PROBES, **i64)
-    probes = torch.empty(N_PROBES, **i64)
-    n_aff = torch.empty((), **i64)
-    scratch = torch.empty(int(lib.mc_scratch_words(cap)), **i64)
-    with torch.cuda.device(dev):
+    stream = _stream(dev)
+    key = ("merge_compact_tracked", dev.index, cap, stream)
+    scratch = cached_scratch(key, dev, lambda: lib.mc_scratch_words(cap))
+    arena, (n_new, bins_l, bins_r, samp, pcnt, probes, n_aff) = _pooled(
+        ("merge_compact_tracked", dev.index, stream), lambda: merge_arenas(POOL_CALLS, dev))
+    out = torch.empty(2, cap, dtype=torch.int32, device=dev)  # merged symbols, then weights
+    with _on_device(dev):
         rc = lib.merge_compact_tracked(
-            _ptr(symbols), _ptr(weights), cap, _ptr(n), _ptr(pair), _ptr(new_id),
-            _ptr(cand), _ptr(counts), _ptr(sym2), _ptr(w2), _ptr(n_new), _ptr(bins),
-            _ptr(samp), _ptr(pcnt), _ptr(probes), _ptr(n_aff), _ptr(scratch), _stream(dev),
+            symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair.data_ptr(), new_id.data_ptr(),
+            cand.data_ptr(), counts.data_ptr(), out.data_ptr(), arena, scratch.data_ptr(), stream,
         )
-    _check(rc, "merge_compact_tracked")
+    _check_scratch(rc, "merge_compact_tracked", key)
     LAUNCHES["merge_compact_tracked"] += 1
-    return sym2, w2, n_new, bins[:TRACK_SIDE], bins[TRACK_SIDE:], samp, pcnt, probes, n_aff
+    sym2, w2 = out.unbind(0)
+    return sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff
 
 
 # ─────────────────────────────── count_pairs2 ────────────────────────────────
@@ -273,14 +363,19 @@ def count_pairs2(symbols, weights, n, pair1, pair2):
     cap = symbols.shape[0]
     _require(symbols, torch.int32, (cap,), "symbols")
     _require(weights, torch.int32, (cap,), "weights")
-    n, pair1, pair2 = (_scalar(x, dev) for x in (n, pair1, pair2))
-    out = torch.zeros(2, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = load()["count_pairs2"].count_pairs2(
-            _ptr(symbols), _ptr(weights), cap, _ptr(n), _ptr(pair1), _ptr(pair2), _ptr(out),
-            _stream(dev),
+    n, pair1, pair2 = _dev_scalar(n, dev), _dev_scalar(pair1, dev), _dev_scalar(pair2, dev)
+    lib = load()["count_pairs2"]
+    stream = _stream(dev)
+    key = ("count_pairs2", dev.index, 0, stream)
+    scratch = cached_scratch(key, dev, lib.cp_scratch_words)
+    out = _pooled(("count_pairs2", dev.index, stream),
+                  lambda: list(torch.empty(POOL_CALLS, 2, dtype=torch.int64, device=dev).unbind(0)))
+    with _on_device(dev):
+        rc = lib.count_pairs2(
+            symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair1.data_ptr(), pair2.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), stream,
         )
-    _check(rc, "count_pairs2")
+    _check_scratch(rc, "count_pairs2", key)
     LAUNCHES["count_pairs2"] += 1
     return out
 
@@ -446,7 +541,7 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     n_log = log.shape[0]
     out = torch.empty(2 * W_SLOTS + n_log + 8, dtype=torch.int64, device=dev)
     base = out.data_ptr()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rc = load()["window_post"].window_post(
             refs, _ptr(probes), _ptr(pcnt), _ptr(cand), _ptr(counts), _ptr(bins_l),
             _ptr(bins_r), _ptr(log), n_log, base, base + 8 * W_SLOTS, base + 16 * W_SLOTS,
@@ -491,7 +586,7 @@ def _compact_launch(name: str, vals, extras):
     # word 0 is the total, the rest the kernel's tile counter and status words
     words = torch.empty(1 + int(lib.cm_scratch_words(n)), dtype=torch.int64, device=dev)
     ptrs = struct.Struct(f"<{len(extras)}Q")
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rc = lib.compact_mask(
             _ptr(vals), n, ptrs.pack(*[e.data_ptr() for e in extras]), ptrs.pack(*[o.data_ptr() for o in outs]),
             len(extras), _ptr(out), words.data_ptr(), words.data_ptr() + 8, _stream(dev),
@@ -552,7 +647,7 @@ def expand_to_mask(mask, vals):
     lib = load()["expand_to_mask"]
     out = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty(max(1, int(lib.em_scratch_words(n))), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rc = lib.expand_to_mask(_ptr(mask), n, _ptr(vals), vals.numel(), _ptr(out), _ptr(scratch),
                                 _stream(dev))
     _check(rc, "expand_to_mask")

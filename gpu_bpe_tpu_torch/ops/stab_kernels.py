@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import LAUNCHES, _check, _on_cpu, _ptr, _require, _stream, _to_i32
+from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream, _to_i32
 
 MAX_DEPTHS = 10  # overlay_fit.cu ND: depth slots 0..9
 NO_GROUP = 0xFFFF
@@ -113,7 +113,7 @@ def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int =
     lib = load()["overlay_fit"]
     packed, key2, gid = (torch.empty_like(skp) for _ in range(3))
     scratch = torch.empty(max(1, int(lib.of_scratch_words(nseg, m))), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         rc = lib.overlay_fit(
             _ptr(skp), nseg, m, int(input_len), chunk_size, depths, base_len, max_depth, group_depth,
             _ptr(packed), _ptr(key2), _ptr(gid), _ptr(scratch), _stream(dev),

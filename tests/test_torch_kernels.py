@@ -126,12 +126,19 @@ TOKS_HIGH = [0x8000 + 17 * i for i in range(6)] + [0xFFFE]
 
 @pytest.mark.parametrize(
     "seed,n,toks",
-    [(0, 16, TOKS_LOW), (1, 2771, TOKS_LOW), (2, 4000, TOKS_HIGH), (3, 3000, list(range(1, 40)))],
+    [(0, 16, TOKS_LOW), (1, 2771, TOKS_LOW), (2, 4000, TOKS_HIGH), (3, 3000, list(range(1, 40))),
+     (4, 0, TOKS_LOW), (5, 1, TOKS_LOW), (6, 2, TOKS_LOW), (7, SMALL_CAP, TOKS_LOW),
+     (8, SMALL_CAP, TOKS_HIGH)],
 )
 def test_random_streams(seed, n, toks):
+    """Random streams, n in {0, 1, 2} among them, and full streams (n ==
+    cap) with a site at cap - 2: its removal at cap - 1 leaves one zero slot,
+    the pad pair of the last symbol."""
     rng = np.random.default_rng(seed)
     sym, w = _stream(rng, n, SMALL_CAP, toks)
     pair = pack_pair(toks[1], toks[2])
+    if n == SMALL_CAP:
+        sym[n - 2], sym[n - 1] = toks[1], toks[2]
     cand, counts = _window(rng, toks, pair, n_aff=min(5, 2 * len(toks) - 1))
     _compare_merge(sym, w, n, pair, 0x9000 if toks is TOKS_HIGH else 300, cand, counts)
 
@@ -164,21 +171,29 @@ def test_crosses_block_boundary():
     _compare_merge(sym, w, n, pair, 300, cand, counts)
 
 
-def test_overlap_quirk_runs():
+@pytest.mark.parametrize("cap,n", [(SMALL_CAP, 300), (BIG_CAP, 20_000)])
+def test_overlap_quirk_runs(cap, n):
     """Runs of identical symbols under (a,a) collapse (read-all-before-
-    write): "aaa" -> "Z"."""
-    n = 300
-    sym = np.zeros(SMALL_CAP, np.uint32)
+    write): "aaa" -> "Z". At BIG_CAP one run spans positions 153..8999, so
+    it crosses the 4096-entry compaction tiles' edges at 4096 and 8192 and
+    leaves the whole tile [4096, 8192) without a survivor; a word start at
+    9000 restarts it, and random tokens follow from 13000."""
+    sym = np.zeros(cap, np.uint32)
     sym[:n] = 1
     sym[0] |= 1 << 16
     sym[100] |= 1 << 16
     sym[150:153] = 2
-    w = np.zeros(SMALL_CAP, np.int32)
+    if n > 13_000:
+        sym[9000] |= 1 << 16
+        sym[13_000:n] = np.random.default_rng(1).integers(1, 4, size=n - 13_000)
+    w = np.zeros(cap, np.int32)
     w[:n] = 3
     rng = np.random.default_rng(0)
     cand, counts = _window(rng, [1, 2], pack_pair(1, 1), n_aff=2)
     p = _compare_merge(sym, w, n, pack_pair(1, 1), 300, cand, counts)
     assert int(p[2]) < n
+    if n > 13_000:
+        assert int(p[2]) < n - 13_000 + 10  # each run collapsed to one symbol
 
 
 def test_word_start_blocks_merge():
@@ -241,12 +256,27 @@ def _compare_count(sym, w, n, p1, p2):
     return p.numpy()
 
 
-@pytest.mark.parametrize("seed,n,toks", [(0, 16, TOKS_LOW), (1, 4000, TOKS_LOW), (2, 4000, TOKS_HIGH)])
+@pytest.mark.parametrize(
+    "seed,n,toks",
+    [(0, 16, TOKS_LOW), (1, 4000, TOKS_LOW), (2, 4000, TOKS_HIGH),
+     (3, 16, TOKS_LOW), (4, 4001, TOKS_HIGH), (5, SMALL_CAP, TOKS_LOW)],
+)
 def test_count_pairs2_random(seed, n, toks):
+    """Random streams; from seed 3 on, the pairs hold a token Z that occurs
+    only at the first and the last live position (the first and the last
+    16-byte vector's edges; n == cap in the last case)."""
     rng = np.random.default_rng(seed)
     sym, w = _stream(rng, n, SMALL_CAP, toks)
-    got = _compare_count(sym, w, n, pack_pair(toks[0], toks[1]), pack_pair(toks[2], toks[3]))
+    p1, p2 = pack_pair(toks[0], toks[1]), pack_pair(toks[2], toks[3])
+    if seed >= 3:
+        z = 0x7777
+        sym[0], sym[n - 1] = z | (1 << 16), z
+        p1, p2 = pack_pair(z, int(sym[1]) & 0xFFFF), pack_pair(int(sym[n - 2]) & 0xFFFF, z)
+        sym[1] &= 0xFFFF  # no word start after the first Z
+    got = _compare_count(sym, w, n, p1, p2)
     assert n < 100 or got.min() > 0
+    if seed >= 3:
+        assert got.tolist() == [w[0], w[n - 2]]
 
 
 def test_count_pairs2_token0_and_sentinel():
@@ -430,3 +460,90 @@ def test_wrappers_reject_unsupported_devices():
     t = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
         tk.count_pairs2(t, t.to("meta"), 4, 1, 2)
+
+
+# ───────────────────────── the wrappers' host helpers ────────────────────────
+
+
+@pytest.mark.parametrize("count", [1, 3])
+def test_merge_outputs_arena_layout(count):
+    """The merge's small outputs are views of one int64 arena per call at the
+    ARENA_* offsets that merge_compact_tracked.cu writes (the bins as
+    2 x 256 f32), ``count`` arenas to one allocation, each at the address
+    handed to the kernel, with the plain version's shapes and dtypes."""
+    arenas = tk.merge_arenas(count, torch.device("cpu"))
+    plain = tk.merge_compact_tracked_plain(
+        torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32), 0, 0, 300,
+        torch.full((tk.W_SLOTS,), tk.INVALID), torch.full((tk.W_SLOTS,), -1),
+    )
+    want = [(p.shape, p.dtype) for p in plain[2:]]
+    assert len(arenas) == count
+    for i, (addr, outs) in enumerate(arenas):
+        assert addr == arenas[0][0] + 8 * tk.ARENA_WORDS * i
+        assert [(o.shape, o.dtype) for o in outs] == want
+        assert all(o.is_contiguous() for o in outs)
+        n_new, bins_l, bins_r, samp, pcnt, probes, n_aff = outs
+        word = {tk.ARENA_NNEW: n_new, tk.ARENA_SAMP: samp, tk.ARENA_PCNT: pcnt, tk.ARENA_PROBES: probes,
+                tk.ARENA_NAFF: n_aff}
+        for off, view in word.items():
+            assert view.data_ptr() == addr + 8 * off
+        assert bins_l.data_ptr() == addr + 8 * tk.ARENA_BINS
+        assert bins_r.data_ptr() == addr + 8 * tk.ARENA_BINS + 4 * 256
+    assert tk.ARENA_SAMP + 4 + 2 * tk.N_PROBES + 1 == tk.ARENA_WORDS == 1 + 256 + 4 + 2 * tk.N_PROBES + 1
+
+
+def test_pooled_items_go_out_once():
+    """Each pooled item is handed out once; an empty pool is refilled."""
+    made = []
+
+    def make():
+        made.append(len(made))
+        return [(len(made), i) for i in range(3)]
+
+    key = ("test", 0, 0)
+    try:
+        got = [tk._pooled(key, make) for _ in range(7)]
+        assert len(set(got)) == 7 and len(made) == 3
+    finally:
+        tk._POOLS.pop(key, None)
+
+
+def test_cached_scratch_keys_and_failed_launch():
+    """Scratch is made zeroed once per (kernel, device, size, stream) key and
+    reused; a failed launch drops its key before raising, so the next call
+    starts from fresh zeroed scratch."""
+    cpu = torch.device("cpu")
+    made = []
+
+    def words():
+        made.append(1)
+        return 40
+
+    keys = [("k", 0, 4096, 11), ("k", 0, 2048, 11), ("k", 0, 4096, 12), ("k", 1, 4096, 11)]
+    try:
+        bufs = [tk.cached_scratch(key, cpu, words) for key in keys]
+        assert len(made) == 4 and len({b.data_ptr() for b in bufs}) == 4
+        assert all(b.shape == (40,) and int(b.abs().sum()) == 0 for b in bufs)
+        assert tk.cached_scratch(keys[0], cpu, words) is bufs[0] and len(made) == 4
+        tk._check_scratch(0, "k", keys[0])
+        assert tk.cached_scratch(keys[0], cpu, words) is bufs[0]
+        bufs[0][3] = 7  # as a launch that failed half way might leave it
+        with pytest.raises(RuntimeError, match="cudaError 700"):
+            tk._check_scratch(700, "k", keys[0])
+        fresh = tk.cached_scratch(keys[0], cpu, words)
+        assert fresh is not bufs[0] and int(fresh.abs().sum()) == 0 and len(made) == 5
+    finally:
+        for key in keys:
+            tk._SCRATCH.pop(key, None)
+
+
+@pytest.mark.parametrize("given", ["int", "0d_int64", "1elem_int64", "0d_int32"])
+def test_dev_scalar_forms(given):
+    """A 0-d int64 tensor on the device is passed as it is; other forms are
+    converted to one."""
+    cpu = torch.device("cpu")
+    x = {"int": 7, "0d_int64": torch.tensor(7), "1elem_int64": torch.tensor([7]),
+         "0d_int32": torch.tensor(7, dtype=torch.int32)}[given]
+    got = tk._dev_scalar(x, cpu)
+    assert got.dtype == torch.int64 and got.shape == () and int(got) == 7
+    assert (got is x) == (given == "0d_int64")
