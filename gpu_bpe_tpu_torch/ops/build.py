@@ -58,15 +58,18 @@ _SIGNATURES = {
     "expand_to_mask": {
         "expand_to_mask": [_P, _I, _P, _I, _P, _P, _P],
         "em_scratch_words": [_I],
+        "em_tile_entries": [],
     },
     "overlay_fit": {
-        "overlay_fit": [_P] + [_I] * 8 + [_P] * 5,
+        "overlay_fit": [_P] + [_I] * 8 + [_P] * 3,
         "of_scratch_words": [_I, _I],
+        "of_tile_rows": [],
     },
 }
 _RESTYPES = {name: ctypes.c_longlong
              for name in ("mc_scratch_words", "mc_arena_words", "cp_scratch_words", "cm_scratch_words",
-                          "cm_tile_entries", "em_scratch_words", "of_scratch_words")}
+                          "cm_tile_entries", "em_scratch_words", "em_tile_entries", "of_scratch_words",
+                          "of_tile_rows")}
 
 
 def _nvcc() -> str:

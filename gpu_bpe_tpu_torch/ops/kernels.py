@@ -91,10 +91,11 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-# Look-back and reduction scratch of merge_compact_tracked.cu and
-# count_pairs2.cu, by (kernel, device index, size, stream): zeroed once when
-# it is made; every call leaves it zeroed again, so no call clears it. A
-# stream orders the calls that share one.
+# Look-back and reduction scratch of the kernels, by (kernel, device index,
+# size, stream): zeroed once when it is made. merge_compact_tracked.cu and
+# count_pairs2.cu leave it zeroed again, so no call clears it;
+# expand_to_mask.cu and overlay_fit.cu clear it with one memset per call.
+# A stream orders the calls that share one.
 _SCRATCH: dict[tuple, torch.Tensor] = {}
 
 
@@ -624,6 +625,8 @@ def compact_valid(vals):
 
 # ─────────────────────────────── expand_to_mask ──────────────────────────────
 
+EXPAND_TILE = 8192  # entries per block of expand_to_mask.cu (TILE_N, em_tile_entries())
+
 
 def expand_to_mask_plain(mask, vals):
     """Plain PyTorch version of ``expand_to_mask``."""
@@ -645,11 +648,11 @@ def expand_to_mask(mask, vals):
     _require(mask, torch.bool, (n,), "mask")
     _require(vals, torch.int32, None, "vals")
     lib = load()["expand_to_mask"]
+    stream = _stream(dev)
+    scratch = cached_scratch(("expand_to_mask", dev.index, n, stream), dev, lambda: lib.em_scratch_words(n))
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(max(1, int(lib.em_scratch_words(n))), dtype=torch.int64, device=dev)
     with _on_device(dev):
-        rc = lib.expand_to_mask(_ptr(mask), n, _ptr(vals), vals.numel(), _ptr(out), _ptr(scratch),
-                                _stream(dev))
+        rc = lib.expand_to_mask(_ptr(mask), n, _ptr(vals), vals.numel(), _ptr(out), _ptr(scratch), stream)
     _check(rc, "expand_to_mask")
     LAUNCHES["expand_to_mask"] += 1
     return out

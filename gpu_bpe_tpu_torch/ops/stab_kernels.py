@@ -10,18 +10,21 @@ still fits in the position's chunk, and the group id at ``group_depth``.
 The plain version is the XLA path of the JAX package
 (``gpu_bpe_tpu/ops/tokenize.py:439-519``: ``_paren_overlay``'s doubling
 scan, then ``_deepest_fit``); the CUDA kernel (``ops/csrc/overlay_fit.cu``)
-computes the same outputs by a "latest op" scan over tiles. Words are u32
-held as int32 tensors of the same bits, as in ``ops/kernels.py``.
+computes the same outputs in one pass, a "latest op" scan over tiles with
+decoupled look-back inside each segment. Words are u32 held as int32
+tensors of the same bits, as in ``ops/kernels.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream, _to_i32
+from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream, _to_i32, cached_scratch
 
 MAX_DEPTHS = 10  # overlay_fit.cu ND: depth slots 0..9
+MAX_CHUNK = 1 << 30  # overlay_fit.cu keeps a chunk's end in 32 bits
 NO_GROUP = 0xFFFF
+OVERLAY_TILE = 4096  # rows per block of overlay_fit.cu (TROWS, of_tile_rows())
 
 
 def _shift_down(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -97,9 +100,14 @@ def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int =
     positions with a fitting open, ``key2`` = the position (0xFFFFFFFF for
     vocab rows), ``gid`` = the id of the open at ``group_depth`` (0xFFFF
     where there is none, everywhere when ``group_depth < 0``). ``depths``
-    is at most ``MAX_DEPTHS``; any ``m`` is taken."""
+    is at most ``MAX_DEPTHS``, ``chunk_size`` at most ``MAX_CHUNK`` and
+    ``|base_len|`` below it; any ``m`` is taken. On the card the three outputs are
+    views of one ``[3, nseg, m]`` allocation."""
     if not 1 <= depths <= MAX_DEPTHS or group_depth >= depths:
         raise ValueError(f"overlay_fit: depths {depths} (max {MAX_DEPTHS}), group_depth {group_depth}")
+    if not 1 <= chunk_size <= MAX_CHUNK or abs(base_len) >= MAX_CHUNK:
+        raise ValueError(f"overlay_fit: chunk_size {chunk_size} and |base_len| {abs(base_len)} "
+                         f"must lie in [1, {MAX_CHUNK}] and [0, {MAX_CHUNK})")
     if _on_cpu(skp):
         return overlay_fit_plain(skp, input_len, chunk_size=chunk_size, depths=depths,
                                  base_len=base_len, max_depth=max_depth, group_depth=group_depth)
@@ -111,13 +119,15 @@ def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int =
     nseg, m = skp.shape
     _require(skp, torch.int32, (nseg, m), "skp")
     lib = load()["overlay_fit"]
-    packed, key2, gid = (torch.empty_like(skp) for _ in range(3))
-    scratch = torch.empty(max(1, int(lib.of_scratch_words(nseg, m))), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    scratch = cached_scratch(("overlay_fit", dev.index, (nseg, m), stream), dev,
+                             lambda: lib.of_scratch_words(nseg, m))
+    out = torch.empty(3, nseg, m, dtype=torch.int32, device=dev)  # packed, key2, gid
     with _on_device(dev):
         rc = lib.overlay_fit(
             _ptr(skp), nseg, m, int(input_len), chunk_size, depths, base_len, max_depth, group_depth,
-            _ptr(packed), _ptr(key2), _ptr(gid), _ptr(scratch), _stream(dev),
+            _ptr(out), _ptr(scratch), stream,
         )
     _check(rc, "overlay_fit")
     LAUNCHES["overlay_fit"] += 1
-    return packed, key2, gid
+    return out.unbind(0)

@@ -146,11 +146,25 @@ def _expand_case(name, rng):
         mask = np.zeros(2 * BLOCK, bool)
         mask[BLOCK - 1] = mask[2 * BLOCK - 1] = True
         return mask, 2 * BLOCK
+    tile = tk.EXPAND_TILE  # entries per block of the CUDA kernel
+    sizes = {"tile_minus_1": tile - 1, "tile": tile, "tile_plus_1": tile + 1}
+    if name in sizes:
+        mask = rng.random(sizes[name]) < 0.5
+        return mask, int(mask.sum())
+    if name == "set_only_in_last_tile":
+        # a look-back over empty tiles on the card
+        mask = np.zeros(4 * tile + 77, bool)
+        mask[4 * tile + 1 :: 3] = True
+        return mask, int(mask.sum())
+    if name == "vals_longer_than_count":
+        mask = rng.random(2 * BLOCK + 99) < 0.3
+        return mask, int(mask.sum()) + 1000
     raise KeyError(name)
 
 
 @pytest.mark.parametrize("name", ["sparse", "dense", "all_set", "none_set", "straddles_tiles",
-                                  "max_displacement"])
+                                  "max_displacement", "tile_minus_1", "tile", "tile_plus_1",
+                                  "set_only_in_last_tile", "vals_longer_than_count"])
 def test_expand_to_mask_matches_pallas(name):
     rng = np.random.default_rng(11)
     mask, n_vals = _expand_case(name, rng)
@@ -292,6 +306,70 @@ def test_overlay_fit_any_m_matches_xla(m, monkeypatch):
         np.testing.assert_array_equal(_u32(g), np.asarray(w))
 
 
+def _overlay_rows(rng, nseg, m, *, p_op, pos_hi):
+    """Random u32 [nseg, m] overlay rows: opens and closes (16-bit ids, as
+    the join's vocab and group ids are; depths 0..11, some outside the
+    slots) with probability p_op, else positions below pos_hi."""
+    flag = np.where(rng.random((nseg, m)) < p_op, rng.choice([0, 2], size=(nseg, m)), 1).astype(np.uint32)
+    depth = rng.integers(0, 12, size=(nseg, m), dtype=np.uint32)
+    pay = np.where(flag == 1, rng.integers(0, pos_hi, size=(nseg, m)),
+                   rng.integers(0, 1 << 16, size=(nseg, m))).astype(np.uint32)
+    return (flag << 30) | (depth << 25) | pay
+
+
+def _overlay_synthetic(name):
+    """(skp u32 [nseg, m], input_len, overlay kwargs) of one named case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    base = dict(chunk_size=512, depths=10, base_len=0, max_depth=8, group_depth=9)
+    if name == "many_short_segments":
+        # a segment start every 20,000 rows (about 5 tiles of the CUDA
+        # kernel) and every other segment without ops: the carry must
+        # restart at each
+        kp = _overlay_rows(rng, 6, 20_000, p_op=0.05, pos_hi=200_000)
+        kp[1::2] = (1 << 30) | (kp[1::2] & 0x1FFFF)
+        return kp, 150_000, base
+    if name == "chunk_1000":
+        kp = _overlay_rows(rng, 2, SBLK, p_op=0.05, pos_hi=40_000)
+        at = np.array([999, 1000, 1999, 2000, 33_332, 33_333, 0, 1], np.uint32)
+        kp[:, 50 : 50 + at.size] = (1 << 30) | at
+        kp[:, -at.size :] = (1 << 30) | at
+        return kp, 33_333, dict(base, chunk_size=1000, base_len=2)
+    if name == "carry_over_empty_tiles":
+        # opens (ids >= 0x8000) in the first rows, positions that fit
+        # nothing through the middle, real positions in the last 4096 rows
+        kp = np.full((1, 2 * SBLK), (1 << 30) | 0x1FFFFFF, np.uint32)
+        opens = np.arange(900, dtype=np.uint32)
+        kp[0, :900] = ((opens % 9 + 1) << 25) | (0x8000 + opens * 31)
+        kp[0, -4096:] = (1 << 30) | (np.arange(4096, dtype=np.uint32) * 7)
+        return kp, 4096 * 7, base
+    if name == "group_depth_last_above_max_depth":
+        return (_overlay_rows(rng, 2, SBLK, p_op=0.1, pos_hi=70_000), 65_536,
+                dict(chunk_size=2048, depths=7, base_len=8, max_depth=4, group_depth=6))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["many_short_segments", "chunk_1000", "carry_over_empty_tiles",
+                                  "group_depth_last_above_max_depth"])
+def test_overlay_fit_synthetic_streams(name, monkeypatch):
+    """Random and structured streams: against the Pallas function where m
+    is a multiple of its block, else against the JAX package's XLA scan,
+    one segment at a time (the [1, 20000] shape of the test above)."""
+    kp, input_len, kw = _overlay_synthetic(name)
+    nseg, m = kp.shape
+    got = tsk.overlay_fit(_i32(kp), input_len, **kw)
+    if m % SBLK == 0:
+        want = jsk.overlay_fit(jnp.asarray(kp), input_len, interpret=True, **kw)
+    else:
+        monkeypatch.setenv("GPU_BPE_TPU_STAB_SCAN", "0")
+        parts = [jtz._overlay_fit_dispatch(jnp.asarray(kp[i : i + 1]), m, kw["depths"], input_len,
+                                           kw["chunk_size"], kw["base_len"], kw["max_depth"], kw["group_depth"])
+                 for i in range(nseg)]
+        want = [np.concatenate([np.asarray(part[k]) for part in parts]) for k in range(3)]
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(_u32(g), np.asarray(w))
+    assert (_u32(got[0]) != 0).any() and (_u32(got[2]) != 0xFFFF).any()
+
+
 def test_new_wrappers_reject_unsupported_devices():
     t = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -304,3 +382,6 @@ def test_new_wrappers_reject_unsupported_devices():
         tsk.overlay_fit(t.view(1, 8).to("meta"), 8, chunk_size=512, depths=9)
     with pytest.raises(ValueError):
         tsk.overlay_fit(t.view(1, 8), 8, chunk_size=512, depths=11)  # more depths than slots
+    for chunk_size, base_len in ((0, 0), (tsk.MAX_CHUNK + 1, 0), (512, -tsk.MAX_CHUNK)):
+        with pytest.raises(ValueError):  # the chunk's end must stay in 32 bits
+            tsk.overlay_fit(t.view(1, 8), 8, chunk_size=chunk_size, depths=9, base_len=base_len)
