@@ -16,7 +16,8 @@ Phases, each printing one JSON line:
    survivor), a site at cap - 2 with n == cap, n in {0, 1, 2}, every
    capacity of the shrink ladder from 2^19 down to 2^11 called one after
    another (the cached scratch must stay clean across capacities), an
-   unaligned view and calls on a second stream; count_pairs2 on pairs
+   unaligned view and calls on a second stream; the probe-less mode (a
+   window with every slot dead, three streams); count_pairs2 on pairs
    whose token Z sits only at the first and the last live position;
    window_post's scalars as the main path passes them (bool flags, 0-d
    int64 views, one-element slices) and as Python ints. Bitwise comparison
@@ -69,8 +70,34 @@ Phases, each printing one JSON line:
    timed in turns, host_ms, device_ms and device_ops of both (each of the
    four at most one memset and one kernel), the plain version's time, the
    byte bound, and whether its inputs fit in the 50 MB L2 (so that the
-   back-to-back timed calls may find them there).
+   back-to-back timed calls may find them there); and compact_mask at the
+   training recount's first call (2^25 entries, 2 extras, recorded in
+   phase 12) with the same readings beside three `masked_select` calls;
+11. api_train: `api.train` on the 16 MB corpus with the default Unicode
+   pre-tokenizer (which must run on the native C++ backend) and dedup to
+   256 + 2048 tokens: the merge list and counts must hash to the JAX
+   package's record (docs/artifacts/certificate_validation_cpu16mb.json);
+   pre-tokenize seconds and MB/s on the host, stream n, capacity, merges/s,
+   recounts; on a 1 MB cut (128 merges) the card's merge list must equal
+   `device="cpu"` and `backend="cpu"` (the CPU oracle);
+12. api_train_nodedup: `api.train(pre_tokenize=False)` on the same 16 MB,
+   one symbol per byte at capacity 2^25, 1024 merges: the segmented
+   recount must engage (recounts by tier), compact_mask must launch; peak
+   allocated memory; the first 128 merges must equal a `force_recount`
+   run; then one segmented and one monolithic recount of the stream cut to
+   capacities 2^20..2^25 (at 2^25 the whole stream: the run's first
+   recount), timed, must give the same winner, count and theta;
+13. api_encode: `api.encode_bulk` of the 16 MB corpus with phase 11's
+   tokenizer must equal `Tokenizer` directly; `export_bin` round-trips
+   through `read_dxft`; the trie and the saved model equal the CPU path's
+   (and the 1 MB cut's card and CPU-path models are byte-identical); then
+   the three paths no other run reaches, each through `api.encode_bulk`
+   and held on a cut to the port's CPU path and `GreedyTrieEncoder`:
+   multi-pass slicing (17 MB with the 64K vocab), the gather walk (80-byte
+   tokens) and the rank chain's full-width fallback.
 
+The launch counts of the kernels' line are the sums over the main-path
+runs (phases 4, 8 and 11-13), each counted from 0.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -78,13 +105,16 @@ exits non-zero before printing anything.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 
@@ -98,6 +128,11 @@ FORCE_MERGES = 256
 SMALL_BYTES = 1 << 20
 SMALL_MERGES = 128
 TOKENIZE_VOCAB = 8192
+API_MERGES = 2048  # the JAX package's recorded 16 MB certificate run
+NODEDUP_MERGES = 1024
+NODEDUP_FORCE = 128
+CERT16 = "docs/artifacts/certificate_validation_cpu16mb.json"
+REPO = Path(__file__).resolve().parent
 DEVICE_PASSES = 5  # chained passes behind the device MB/s
 PALLAS = "gpu_bpe_tpu/ops/pallas_kernels.py"
 CSRC = "gpu_bpe_tpu_torch/ops/csrc"
@@ -394,6 +429,10 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     real = ("real/first-merge", rs.symbols.cpu().numpy(), rs.weights.cpu().numpy(), real_stream.n,
             int(rs.pend_pair), 256, rs.cand.cpu().numpy(), rs.cand_counts.cpu().numpy())
     cases.append(real)
+    # probe-less mode (the distributed trainer's and the selftest's): the
+    # window-mode call with every slot dead probes nothing
+    dead = (np.full(256, 0xFFFFFFFF, np.int64), np.full(256, -1, np.int64))
+    cases += [(f"probe-less/{c[0]}", *c[1:6], *dead) for c in (cases[0], cases[6], real)]
 
     err = {k: 0.0 for k in TRAIN_KERNELS}
     details = []
@@ -487,6 +526,9 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         if e != 0.0:
             raise AssertionError(f"{k} disagrees with its plain version: max_abs_err {e}\n{details}")
 
+    if any(d["case"].startswith("probe-less") and d["n_aff"] != 0 for d in details):
+        raise AssertionError("a dead window was probed")
+
     # timings at the main path's shapes: the real first merge
     _, sym, w, n, pair, new_id, cand, counts = real
     targs = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev),
@@ -543,25 +585,27 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
 
 
 @contextmanager
-def recorded_calls(ttz):
-    """Record the arguments of every tokenize-kernel call that the
-    tokenizer makes, by name, while the block runs."""
-    calls = {name: [] for name in TOKENIZE_KERNELS}
-    originals = {name: getattr(ttz, name) for name in TOKENIZE_KERNELS}
+def recorded_calls(module, names=TOKENIZE_KERNELS, keep=None):
+    """Record the arguments of the calls that ``module`` makes to the
+    kernel wrappers ``names``, by name, while the block runs (the first
+    ``keep`` of each when given)."""
+    calls = {name: [] for name in names}
+    originals = {name: getattr(module, name) for name in names}
 
     def recording(name, fn):
         def call(*args, **kw):
-            calls[name].append((args, kw))
+            if keep is None or len(calls[name]) < keep:
+                calls[name].append((args, kw))
             return fn(*args, **kw)
         return call
 
     for name, fn in originals.items():
-        setattr(ttz, name, recording(name, fn))
+        setattr(module, name, recording(name, fn))
     try:
         yield calls
     finally:
         for name, fn in originals.items():
-            setattr(ttz, name, fn)
+            setattr(module, name, fn)
 
 
 def pass_rates(torch, tok, corpus: bytes) -> dict:
@@ -863,6 +907,251 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
     return rows
 
 
+def sha_pair(res) -> dict:
+    """The certificate recipe's hashes of a merge list and its counts
+    (``scripts/validate_certificate.py``)."""
+    blob = json.dumps([[a, b, c] for a, b, c in res.merges]).encode()
+    return {"sha_merges": hashlib.sha256(blob).hexdigest(),
+            "sha_counts": hashlib.sha256(json.dumps(res.merge_counts).encode()).hexdigest()}
+
+
+def recount_timing(torch, ts, padded) -> list:
+    """One segmented and one monolithic recount of the no-dedup stream cut
+    to capacities 2^20..2^25 (3/4 full, or all of it), timed in turns
+    (median of 5, CUDA events): winner, count and theta must agree.
+    ``ns_per_elem`` is the time per capacity element of the recount the
+    trainer runs at that capacity (below the gate, the monolithic one)."""
+    rows = []
+    for k in range(20, 26):
+        cap = 1 << k
+        n = min(padded.n, cap * 3 // 4)
+        sym = torch.zeros(cap, dtype=torch.int32, device="cuda")
+        w = torch.zeros(cap, dtype=torch.int32, device="cuda")
+        sym[:n] = torch.from_numpy(padded.symbols[:n].astype(np.int32)).cuda()
+        w[:n] = torch.from_numpy(padded.weights[:n]).cuda()
+        pair, valid = ts._pair_ids(sym, n)
+        w64 = torch.where(valid, w.to(torch.int64), 0)
+        fns = {"monolithic": lambda: ts._recount_monolithic(pair, w64),
+               "segmented": lambda: ts._full_recount_segmented(pair, w64, cap)}
+        outs = {name: fn() for name, fn in fns.items()}
+        picks = {name: (int(o[0]), int(o[1]), int(o[4])) for name, o in outs.items()}
+        if len(set(picks.values())) != 1:
+            raise AssertionError(f"recounts disagree at capacity 2^{k}: {picks}")
+        times = dict(zip(fns, time_in_turns(torch, list(fns.values()), 5)))
+        taken = "segmented" if cap >= ts._SEG_RECOUNT_MIN_CAP else "monolithic"
+        rows.append({"capacity": cap, "n": n, "winner": picks["monolithic"],
+                     **{f"{name}_ms": t for name, t in times.items()},
+                     "taken": taken, "ns_per_elem": times[taken] / cap * 1e6})
+        del pair, valid, w64, sym, w, outs
+    ts.RECOUNTS.clear()
+    return rows
+
+
+def recount_compact_check(torch, kernels, call, dev) -> dict:
+    """Phase 10, the recount's call of compact_mask (the first one of the
+    no-dedup run): the kernel against its plain version (tolerance 0 on the
+    first ``total`` entries and the total), its times and those of three
+    ``masked_select`` calls computing the same."""
+    (vals, extras), _ = call
+    extras = list(extras)
+    got, got_t = kernels.compact_mask(vals, extras)
+    torch.cuda.synchronize()
+    want, want_t = kernels.compact_mask_plain(vals, extras)
+    t = int(want_t)
+    err = max_abs_diff([g[:t] for g in got] + [got_t], [w[:t] for w in want] + [want_t])
+    keep = vals != -1
+    n = vals.numel()
+    ms, library_ms = time_in_turns(torch, [lambda: kernels.compact_mask(vals, extras),
+                                           lambda: [torch.masked_select(a, keep) for a in (vals, *extras)]], 10)
+    plain_ms = time_ms(torch, lambda: kernels.compact_mask_plain(vals, extras), 2)
+    prof = dict(host_ms=host_ms(torch, lambda: kernels.compact_mask(vals, extras), 20),
+                **device_profile(torch, lambda: kernels.compact_mask(vals, extras), reps=5))
+    lib_prof = device_profile(torch, lambda: [torch.masked_select(a, keep) for a in (vals, *extras)], reps=5)
+    nbytes = 4 * n + 4 * t * (1 + 2 * len(extras)) + 8
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               max_abs_err=err, **prof)
+    emit({"phase": "kernel", "name": "compact_mask", "call": "recount", "max_abs_err": err, "tolerance": 0,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **prof,
+          "library_device_ms": lib_prof["device_ms"], "library_device_ops": lib_prof["device_ops"],
+          "bytes": nbytes, "bound_ms": row["bound_ms"], "bound_by": "bytes",
+          "shape": {"n": n, "n_extra": len(extras), "total": t}})
+    if err != 0.0:
+        raise AssertionError(f"compact_mask disagrees with its plain version at the recount's call: {err}")
+    if round(prof["device_ops"]) > 2:
+        raise AssertionError(f"compact_mask put {prof['device_op_names']} on the card per call at the recount")
+    return row
+
+
+def cut_ids(ids, vocab, lo: int, hi: int):
+    """The ids of the bytes [lo, hi) of their input (both ends on token
+    ends, as chunk-aligned ends are)."""
+    lens = np.array([len(v) for v in vocab], np.int64)[ids]
+    ends = np.cumsum(lens)
+    a, b = np.searchsorted(ends, [lo, hi], side="right")
+    if (a and ends[a - 1] != lo) or ends[b - 1] != hi:
+        raise AssertionError(f"[{lo}, {hi}) does not start and end on token ends")
+    return ids[a:b]
+
+
+def encode_path_cases(corpus: bytes, vocab8k, vocab64k) -> list:
+    """(label, vocab, data, cut) of the three tokenize paths that the main
+    runs do not reach: multi-pass slicing (input over 2^24 bytes with the
+    stab vocab; the cut straddles the pass boundary), the gather walk (a
+    vocab with 80-byte tokens) and the rank chain's full-width fallback (a
+    vocab of 20,000 tokens of 17-20 bytes over {a, b}: every position holds
+    a prefix group, more than the n/8 rank capacity)."""
+    rng = np.random.default_rng(55)
+    long_lines = sorted({corpus[81 * i : 81 * i + 80] for i in range(0, 4000, 7)})
+    ab = np.frombuffer(b"ab", np.uint8)
+    ab_toks = sorted({bytes(ab[rng.integers(0, 2, size=int(rng.integers(17, 21)))]) for _ in range(20_000)})
+    big = 1 << 24
+    return [
+        ("multi_pass", vocab64k, corpus + corpus[: 1 << 20], (big - (1 << 18), big + (1 << 18))),
+        ("gather_walk", vocab8k + long_lines, corpus[: 4 << 20], (0, 1 << 19)),
+        ("rank_full_width", [bytes([b]) for b in range(256)] + ab_toks,
+         bytes(ab[rng.integers(0, 2, size=2 << 20)]), (0, 1 << 18)),
+    ]
+
+
+def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -> None:
+    """Phases 11-13: the public API on the card. Adds each run's kernel
+    launches to ``launches`` and the recount's compact_mask check to
+    ``rows``."""
+    from gpu_bpe_tpu_torch import BPETokenizer, PreTokenizer, Tokenizer, Trainer, api
+    from gpu_bpe_tpu_torch.core import BPEModel, GreedyTrieEncoder, read_dxft
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops import tokenize as ttz
+    from gpu_bpe_tpu_torch.ops import train_step as ts
+    from gpu_bpe_tpu_torch.ops.ingest import make_stream, pad_stream
+    from gpu_bpe_tpu_torch.unicode import backend_name
+
+    # ── phase 11: api.train with the Unicode pre-tokenizer and dedup ──
+    backend = backend_name()  # builds the native decoder, outside the clock
+    t0 = time.perf_counter()
+    data, starts = PreTokenizer().pre_tokenize_bytes(corpus)
+    pretok_s = time.perf_counter() - t0
+    u_stream = make_stream(data, starts)
+    kernels.LAUNCHES.clear()
+    tok11, res11 = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, show_progress=False))
+    torch.cuda.synchronize()
+    run_launches = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+    record = json.loads((REPO / CERT16).read_text())["normal"]
+    got = sha_pair(res11)
+    small = corpus[:SMALL_BYTES]
+    cut = {label: api.train(small, api.TrainConfig(vocab_size=256 + SMALL_MERGES, show_progress=False, **kw))
+           for label, kw in (("cuda", {}), ("cpu", {"device": "cpu"}), ("reference", {"backend": "cpu"}))}
+    cut_equal = all(r.merges == cut["cuda"][1].merges and r.merge_counts == cut["cuda"][1].merge_counts
+                    for _, r in cut.values())
+    emit({"phase": "api_train", "bytes": len(corpus), "merges": len(res11.merges),
+          "pretokenize_s": pretok_s, "pretokenize_mb_per_s": len(corpus) / pretok_s / 1e6,
+          "unicode_backend": backend, "stream_n": u_stream.n,
+          "capacity": int(pad_stream(u_stream).symbols.shape[0]), "seconds": res11.training_time_s,
+          "merges_per_s": len(res11.merges) / res11.training_time_s, "recounts": res11.recounts,
+          "launches": run_launches, **got, "record": CERT16, "equal_to_record": got == {k: record[k] for k in got},
+          "cut_bytes": len(small), "cut_merges": len(cut["cuda"][1].merges), "cut_cuda_eq_cpu_eq_reference": cut_equal})
+    if backend != "cpp-decoder":
+        raise AssertionError(f"the pre-tokenizer runs on the {backend} backend, want cpp-decoder")
+    if got != {k: record[k] for k in got}:
+        raise AssertionError(f"api.train's merge list hashes {got}, the JAX package recorded {record}")
+    if not cut_equal or len(cut["cuda"][1].merges) != SMALL_MERGES or min(run_launches.values()) <= 0:
+        raise AssertionError("api.train: the 1 MB cut differs between card, CPU path and reference, "
+                             f"or a training kernel never launched: {run_launches}")
+    for k in TRAIN_KERNELS:
+        launches[k] += run_launches[k]
+
+    # ── phase 12: api.train without pre-tokenization (no dedup, capacity 2^25) ──
+    nd = pad_stream(api._byte_stream(corpus))
+    ts.RECOUNTS.clear()
+    kernels.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_calls(ts, ("compact_mask",), keep=1) as rc_calls:
+        _, res12 = api.train(corpus, api.TrainConfig(vocab_size=256 + NODEDUP_MERGES, pre_tokenize=False,
+                                                     show_progress=False))
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    run_launches = {k: kernels.LAUNCHES[k] for k in (*TRAIN_KERNELS, "compact_mask")}
+    tiers = dict(ts.RECOUNTS)
+    truth, _ = train(torch, Trainer, api._byte_stream(corpus), NODEDUP_FORCE, "cuda", force_recount=True)
+    same = truth.merges == res12.merges[:NODEDUP_FORCE] and truth.merge_counts == res12.merge_counts[:NODEDUP_FORCE]
+    emit({"phase": "api_train_nodedup", "bytes": len(corpus), "stream_n": nd.n,
+          "capacity": int(nd.symbols.shape[0]), "merges": len(res12.merges), "seconds": res12.training_time_s,
+          "merges_per_s": len(res12.merges) / res12.training_time_s, "recounts": res12.recounts,
+          "recounts_by_tier": tiers, "launches": run_launches, "peak_allocated_bytes": peak,
+          "force_recount_merges": len(truth.merges), "force_recount_equal": same})
+    # its last row is the phase's first recount: the whole stream at 2^25
+    emit({"phase": "recount_timing", "seg_recount_min_cap": ts._SEG_RECOUNT_MIN_CAP,
+          "rows": recount_timing(torch, ts, nd)})
+    if nd.symbols.shape[0] != 1 << 25 or not any(k.startswith("seg") for k in tiers):
+        raise AssertionError(f"the segmented recount did not engage at capacity {nd.symbols.shape[0]}: {tiers}")
+    if min(run_launches.values()) <= 0 or not same:
+        raise AssertionError(f"no-dedup training: launches {run_launches}, force_recount equal {same}")
+    for k, v in run_launches.items():
+        launches[k] += v
+    rows["compact_mask"]["max_abs_err"] = max(
+        rows["compact_mask"]["max_abs_err"],
+        recount_compact_check(torch, kernels, rc_calls["compact_mask"][0], torch.device("cuda"))["max_abs_err"])
+    del rc_calls, nd
+
+    # ── phase 13: BPETokenizer / api.encode_bulk and the artifacts ──
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids13 = api.encode_bulk(tok11, corpus)
+    bulk_s = time.perf_counter() - t0
+    run_launches = {k: kernels.LAUNCHES[k] for k in TOKENIZE_KERNELS}
+    direct = Tokenizer(tok11.model.vocab).encode_bytes(corpus)
+    toks, model, head = read_dxft(api.export_bin(tok11, corpus))
+    on_cpu = BPETokenizer(tok11.model, backend="cpu")
+    cpu_model = cut["cpu"][0].model
+    with tempfile.TemporaryDirectory() as tmp:
+        tok11.save(f"{tmp}/m.json")
+        loaded = api.load_model(f"{tmp}/m.json")
+        saved = open(f"{tmp}/m.json", "rb").read()
+        cut["cpu"][0].save(f"{tmp}/c.json")
+        saved_cut = (open(f"{tmp}/c.json", "rb").read(), cut["cpu"][0].compile_trie())
+    checks = {
+        "ids_eq_tokenizer": np.array_equal(ids13, direct),
+        "dxft_roundtrip": np.array_equal(toks, ids13) and model.to_json() == tok11.model.to_json()
+        and head["tokenCount"] == len(ids13),
+        "trie_eq_cpu_path": tok11.compile_trie() == on_cpu.compile_trie() == loaded.compile_trie(),
+        "save_load_eq": saved == tok11.model.to_json().encode() and loaded.model.merges == tok11.model.merges,
+        "cut_model_and_trie_eq_cpu_path": (cut["cuda"][0].model.to_json().encode(), cut["cuda"][0].compile_trie())
+        == saved_cut and cpu_model.merges == cut["cuda"][0].model.merges,
+        "decode_roundtrip": api.decode(tok11, ids13).encode() == corpus,
+    }
+    emit({"phase": "api_encode", "bytes": len(corpus), "tokens": len(ids13), "first_call_seconds": bulk_s,
+          "launches": run_launches, **checks})
+    if not all(checks.values()) or run_launches["compact_valid"] <= 0:
+        raise AssertionError(f"api_encode checks failed: {checks}, launches {run_launches}")
+    for k, v in run_launches.items():
+        launches[k] += v
+
+    # ── phase 13, the tokenize paths no other run reaches ──
+    for label, vocab, data, (lo, hi) in encode_path_cases(corpus, tok11.model.vocab, vocabs["65536-synth"]):
+        tok = BPETokenizer(BPEModel(vocab=vocab, merges=[]))
+        kernels.LAUNCHES.clear()
+        ids = api.encode_bulk(tok, data)
+        torch.cuda.synchronize()
+        run_launches = {k: kernels.LAUNCHES[k] for k in TOKENIZE_KERNELS}
+        t = Tokenizer(vocab)
+        lo, hi = lo - lo % t.chunk_size, hi - hi % t.chunk_size  # the cut's ends on chunk ends
+        part = cut_ids(ids, vocab, lo, hi)
+        on_cpu = Tokenizer(vocab, device="cpu").encode_bytes(data[lo:hi])
+        ref = GreedyTrieEncoder(vocab, chunk_size=t.chunk_size).encode(data[lo:hi])
+        engaged = {"multi_pass": len(data) > t.max_pass_bytes,
+                   "gather_walk": t.tables.max_token_len > ttz._MAX_WALK_STEP,
+                   "rank_full_width": run_launches["compact_mask"] > 0 and run_launches["expand_to_mask"] == 0}
+        row = {"phase": "api_encode_path", "path": label, "bytes": len(data), "tokens": len(ids),
+               "passes": -(-len(data) // t.max_pass_bytes), "max_token_len": t.tables.max_token_len,
+               "launches": run_launches, "engaged": engaged[label], "cut": [lo, hi],
+               "cuda_eq_cpu": np.array_equal(part, on_cpu), "cuda_eq_greedy": np.array_equal(part, ref),
+               "decode_roundtrip": tok.decode(ids) == data}
+        emit(row)
+        if not (row["engaged"] and row["cuda_eq_cpu"] and row["cuda_eq_greedy"] and row["decode_roundtrip"]):
+            raise AssertionError(f"tokenize path {label} failed: {row}")
+        for k, v in run_launches.items():
+            launches[k] += v
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -1024,6 +1313,8 @@ def main() -> int:
     # ── phase 10: tokenize kernels against their plain versions ──
     rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, calls, torch.device("cuda")))
     del calls
+
+    api_phases(torch, corpus, vocabs, launches, rows)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

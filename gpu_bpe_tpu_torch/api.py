@@ -1,0 +1,196 @@
+"""High-level API: train / encode / decode / export (the port's counterpart
+of ``gpu_bpe_tpu/api.py``), with backend selection:
+
+* ``backend="cuda"``: device-resident training (``ops.Trainer``) on
+  ``TrainConfig.device``, the card unless ``device="cpu"``;
+* ``backend="cpu"``: the exact-semantics oracle (``core.ReferenceTrainer``);
+* ``backend="dist"``: the data-parallel trainer, not ported yet.
+
+Streamed training from files (``train_files``) waits for the port of the
+native and streamed ingest (ROADMAP.md queue 1, item 3).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from .core.trainer_ref import ProgressFn, ReferenceTrainer, TrainingResult, bytes_to_symbols, tag_word_boundaries
+from .models.bpe import BPETokenizer
+from .pretok import PreTokenizer, tag_word_boundaries_bytes
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainConfig:
+    """Training configuration."""
+
+    vocab_size: int = 4096
+    backend: str = "cuda"  # cuda | cpu | dist
+    device: str = "cuda"  # where backend "cuda" runs: the card, or "cpu"
+    pre_tokenize: bool = True  # Unicode word boundaries (else the byte heuristic, no dedup)
+    dedup: bool = True  # unique-word multiset (exact, faster)
+    shuffle: bool = False  # paragraph shuffle at ingest
+    batch_merges: int = 1024  # merges per host round trip (BATCH_MERGES cap)
+    seed: int = 0
+    show_progress: bool = True
+    profile_dir: str | None = None  # capture a torch.profiler trace of training
+
+
+# Extensions taken as text when a directory is expanded
+TEXT_EXTENSIONS = frozenset(
+    "txt md markdown rst json jsonl csv tsv xml yaml yml toml html htm css "
+    "py js mjs ts tsx jsx swift rs go c h cpp hpp cc java kt kts scala rb "
+    "php pl lua sh bash zsh fish sql r jl zig wgsl glsl hlsl tex bib srt "
+    "vtt log".split()
+)
+
+
+def collect_files(paths: list[str]) -> list[str]:
+    """Expand files and directories into a sorted list of text-file paths:
+    directories recursively with the text extension filter, named files
+    always."""
+    out: list[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            for root, dirs, names in os.walk(p):
+                dirs.sort()  # machine-independent traversal order
+                for name in sorted(names):
+                    ext = name.rsplit(".", 1)[-1].lower() if "." in name else ""
+                    if ext in TEXT_EXTENSIONS:
+                        out.append(os.path.join(root, name))
+        else:
+            out.append(p)
+    return out
+
+
+def build_corpus(files: list[bytes], shuffle: bool = False, seed: int = 0) -> bytes:
+    """Concatenate file contents with \\n\\n separators; optional paragraph
+    shuffle."""
+    corpus = b"\n\n".join(bytes(f) for f in files)
+    if shuffle:
+        paragraphs = [p for p in corpus.split(b"\n\n") if p]
+        rng = np.random.default_rng(seed)
+        rng.shuffle(paragraphs)
+        corpus = b"\n\n".join(paragraphs)
+    return corpus
+
+
+def log_progress(progress: dict) -> None:
+    """Log one progress event of the reference's schema."""
+    logger.info(
+        "[%d/%d] '%s' count:%d symbols:%d (%.1f merges/s)", progress["mergeIndex"], progress["totalMerges"],
+        progress["mergeString"], progress["bestCount"], progress["symbolCount"], progress["mergesPerSecond"],
+    )
+
+
+def train(
+    corpus: bytes | str | list[bytes],
+    config: TrainConfig | None = None,
+    on_progress: ProgressFn | None = None,
+) -> tuple[BPETokenizer, TrainingResult]:
+    """Train a BPE tokenizer. Returns (tokenizer, full training result)."""
+    config = config or TrainConfig()
+    if config.backend == "dist":
+        raise NotImplementedError(
+            "backend='dist' is not ported yet (ROADMAP.md queue 1, item 7: distributed)")
+    if config.backend not in ("cuda", "cpu"):
+        raise ValueError(f"backend must be 'cuda', 'cpu' or 'dist', got {config.backend!r}")
+    if isinstance(corpus, list):
+        corpus = build_corpus(corpus, config.shuffle, config.seed)
+    if isinstance(corpus, str):
+        corpus = corpus.encode("utf-8")
+
+    if config.pre_tokenize:
+        data, starts = PreTokenizer().pre_tokenize_bytes(corpus)
+    else:
+        data, starts = corpus, None
+    if on_progress is None and config.show_progress:
+        on_progress = log_progress
+
+    with _profile_ctx(config):
+        result = _train_backend(config, data, starts, on_progress)
+    tokenizer = BPETokenizer.from_training_result(result, backend=config.backend, device=config.device)
+    return tokenizer, result
+
+
+def _profile_ctx(config: TrainConfig):
+    """A torch.profiler trace of training written to ``profile_dir`` (view
+    with TensorBoard or chrome://tracing)."""
+    if not config.profile_dir:
+        return contextlib.nullcontext()
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if config.backend == "cuda" and config.device != "cpu":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    logger.info("capturing a torch.profiler trace to %s", config.profile_dir)
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(config.profile_dir),
+    )
+
+
+def _train_backend(config: TrainConfig, data, starts, on_progress) -> TrainingResult:
+    if config.backend == "cpu":
+        symbols = bytes_to_symbols(data)
+        if starts is not None:
+            symbols = tag_word_boundaries(symbols, starts)
+        else:
+            symbols = tag_word_boundaries_bytes(symbols)
+        return ReferenceTrainer().train(symbols, config.vocab_size, on_progress)
+
+    from .ops import Trainer
+
+    trainer = Trainer(batch_merges=config.batch_merges, device=config.device)
+    if starts is None:
+        return trainer.train_stream(_byte_stream(data), config.vocab_size, on_progress)
+    return trainer.train(data, starts, config.vocab_size, config.dedup, on_progress)
+
+
+def _byte_stream(data: bytes):
+    """The stream trained without pre-tokenization: byte-heuristic word
+    starts, one symbol per byte, weight 1, no dedup."""
+    from .ops import SymbolStream
+
+    symbols = tag_word_boundaries_bytes(bytes_to_symbols(data))
+    return SymbolStream(symbols=symbols, weights=np.ones(len(symbols), np.int32), n=len(symbols),
+                        total_bytes=len(symbols))
+
+
+def load_model(path: str, backend: str = "cuda", device: str = "cuda") -> BPETokenizer:
+    return BPETokenizer.load(path, backend=backend, device=device)
+
+
+def encode(tokenizer: BPETokenizer, text: str) -> list[int]:
+    """Interactive encode: exact merge-order BPE semantics."""
+    return tokenizer.encode(text)
+
+
+def encode_bulk(tokenizer: BPETokenizer, data: bytes) -> np.ndarray:
+    """Bulk greedy tokenization (chunked longest match)."""
+    return tokenizer.encode_bytes_greedy(data)
+
+
+def decode(tokenizer: BPETokenizer, tokens) -> str:
+    return tokenizer.decode_text(tokens)
+
+
+def export_bin(tokenizer: BPETokenizer, data: bytes, path: str | None = None) -> bytes:
+    blob = tokenizer.export_bin(data)
+    if path:
+        with open(path, "wb") as f:
+            f.write(blob)
+    return blob
+
+
+def export_trie(tokenizer: BPETokenizer, path: str | None = None) -> bytes:
+    blob = tokenizer.compile_trie()
+    if path:
+        with open(path, "wb") as f:
+            f.write(blob)
+    return blob

@@ -22,6 +22,15 @@ BATCH_MERGES = 1024
 # Merge log stride: [pair, new_token_id, count] per merge.
 MERGE_LOG_STRIDE = 3
 
+# Trie binary format (v3; v2 is read too).
+TRIE_MAGIC = 0x54524945  # 'TRIE'
+TRIE_VERSION = 3
+TRIE_SUPPORTED_VERSIONS = (2, 3)
+TRIE_HEADER_SIZE = 28
+
+# Tokenized-corpus binary export ('DXFT').
+DXFT_MAGIC = 0x44584654
+
 # Greedy tokenizer chunking (the reference tokenizer's chunk sizes).
 DEFAULT_CHUNK_SIZE = 512
 MAX_CHUNK_SIZE = 2048

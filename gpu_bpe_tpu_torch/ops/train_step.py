@@ -8,8 +8,10 @@ counts are maintained across merges: a merge (a,b) -> Z can only change
 counts of pairs ending in a, starting with b, equal to (a,b) or containing
 Z (proof in the reference's ``_post_counts``), so each merge recounts just
 that affected subset inside the merge kernel. When the certificate fails,
-``_ensure_pending`` runs a full sort-based recount. The merge list is
-bitwise equal to recounting before every merge (``force_recount=True``).
+``_ensure_pending`` runs a full sort-based recount: one monolithic sort
+below capacity 2^22, the two-level segmented recount (``compact_mask`` on
+the per-segment run summaries) from there on. The merge list is bitwise
+equal to recounting before every merge (``force_recount=True``).
 
 Each certified merge launches the three kernels of ``ops/kernels.py``:
 ``merge_compact_tracked`` (merge, compaction, created-pair tracking, probe
@@ -17,7 +19,8 @@ counts), ``count_pairs2`` (exact counts of the two sampled created pairs)
 and ``window_post`` (window upkeep, next winner, certificate). Between them
 everything stays on the device; the Python loop reads one small vector per
 merge to decide whether to go on (a second read only in the rare merge that
-affects more than ``N_PROBES`` window slots).
+affects more than ``N_PROBES`` window slots), and a segmented recount reads
+its summary count once to pick its tier.
 
 There is no ``jit``: data-dependent loops are Python loops around kernel
 launches. Every tensor of ``TrainState`` lives on one device.
@@ -25,6 +28,7 @@ launches. Every tensor of ``TrainState`` lives on one device.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -35,6 +39,8 @@ from .kernels import (
     INVALID,
     N_PROBES,
     W_SLOTS,
+    _to_i32,
+    compact_mask,
     count_pairs2,
     merge_compact_tracked,
     window_post,
@@ -156,13 +162,85 @@ def _pick_window(sp: torch.Tensor, run_total: torch.Tensor):
     return bp, bc, cand, counts, theta
 
 
-def _full_recount_impl(symbols: torch.Tensor, weights: torch.Tensor, n):
-    """Exact full recount (monolithic sort at every capacity):
-    (best_pair, count, cand, counts, theta)."""
-    pair, valid = _pair_ids(symbols, n)
-    w = torch.where(valid, weights.to(torch.int64), 0)
+# From this capacity on the recount runs the two-level segmented scheme
+# (the reference's gate and segment length; tests lower both). On an H100
+# it beats the monolithic sort at every capacity from 2^22 to 2^25
+# (chip_smoke.py's recount_timing: 4.8 against 15.2 ms at 2^22).
+_SEG_RECOUNT_MIN_CAP = 1 << 22
+_SEG_RECOUNT_M = 1 << 17
+
+# Full recounts by path: "monolithic", or the segmented recount's tier
+# ("seg_cap/8", "seg_cap/2", "seg_fallback"); clear() to reset.
+RECOUNTS: Counter = Counter()
+
+
+def _run_totals_reset(sp: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """Per-run totals of a ``[nseg, m]`` segment-sorted pair stream, at run
+    ends (0 elsewhere and for pair id 0); runs break at row boundaries.
+
+    Gather-free: weights are >= 0, so the int64 prefix sum of a row never
+    falls, and the mass before each run's start, carried forward to its
+    end, is one ``cummax`` of the start values. Each run's exact mass is
+    wrapped to i32 as ``_run_totals`` wraps it."""
+    start = torch.ones_like(sp, dtype=torch.bool)
+    start[:, 1:] = sp[:, 1:] != sp[:, :-1]
+    is_end = torch.ones_like(start)
+    is_end[:, :-1] = start[:, 1:]
+    csum = torch.cumsum(sw, 1)
+    before = torch.cummax(torch.where(start, csum - sw, 0), 1).values
+    run = _to_i32(csum - before)
+    return torch.where(is_end & (sp != 0), run, 0)
+
+
+def _recount_monolithic(pair: torch.Tensor, w: torch.Tensor):
     sp, order = torch.sort(pair)
     return _pick_window(sp, _run_totals(sp, w[order]))
+
+
+def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
+    """Two-level exact recount: sort each ``_SEG_RECOUNT_M``-row segment
+    (one batched sort), take per-segment run totals, compact the (pair,
+    count) run summaries with ``compact_mask`` and combine them with one
+    smaller sort over the first cap/8 or cap/2 summaries (the monolithic
+    sort when there are more). Every count is an exact sum, so winner,
+    count and theta equal the monolithic recount's; candidate picks may
+    differ, which moves certificate windows, never a merge.
+
+    The tier is chosen on the host: one read of the summary count per
+    recount."""
+    m = _SEG_RECOUNT_M
+    sp, order = torch.sort(pair.reshape(cap // m, m), dim=1)
+    rt = _run_totals_reset(sp, torch.gather(w.reshape(cap // m, m), 1, order))
+    flat_rt = rt.reshape(-1)
+    # the primary word keeps only its low 16 bits: pair id and count ride
+    # as extras, as their u32 bit patterns
+    prim = torch.where(flat_rt > 0, 0, -1).to(torch.int32)
+    (_, sp_c, rt_c), total = compact_mask(
+        prim, (_to_i32(sp.reshape(-1)).to(torch.int32), flat_rt.to(torch.int32)),
+    )
+    cnt = int(total)
+    for rcap, tier in ((cap >> 3, "seg_cap/8"), (cap >> 1, "seg_cap/2")):
+        if cnt <= rcap:
+            RECOUNTS[tier] += 1
+            live = torch.arange(rcap, device=pair.device) < cnt
+            sp2 = torch.where(live, sp_c[:rcap].to(torch.int64) & 0xFFFFFFFF, 0)
+            c2 = torch.where(live, rt_c[:rcap].to(torch.int64), 0)
+            return _recount_monolithic(sp2, c2)
+    RECOUNTS["seg_fallback"] += 1
+    return _recount_monolithic(pair, w)
+
+
+def _full_recount_impl(symbols: torch.Tensor, weights: torch.Tensor, n):
+    """Exact full recount: (best_pair, count, cand, counts, theta). From
+    capacity ``_SEG_RECOUNT_MIN_CAP`` on (a multiple of ``_SEG_RECOUNT_M``)
+    it runs the segmented scheme, below it one monolithic sort."""
+    pair, valid = _pair_ids(symbols, n)
+    w = torch.where(valid, weights.to(torch.int64), 0)
+    cap = symbols.shape[0]
+    if cap >= _SEG_RECOUNT_MIN_CAP and cap % _SEG_RECOUNT_M == 0:
+        return _full_recount_segmented(pair, w, cap)
+    RECOUNTS["monolithic"] += 1
+    return _recount_monolithic(pair, w)
 
 
 def _ensure_pending(st: TrainState, certified: bool) -> TrainState:

@@ -23,11 +23,13 @@ logger = logging.getLogger(__name__)
 
 _MIN_CAP = 2048
 
-# Recount budget per batch: the reference package's rule and constants,
-# kept as they are (they were calibrated for the reference's device, not
-# measured for this port). The budget only moves batch ends, never a merge.
+# Recount budget per batch: the reference package's rule. The cost per
+# capacity element is the largest of the recount's measured on an NVIDIA
+# H100 80GB HBM3 at 700 W (chip_smoke.py's recount_timing): 4.06 ns with the
+# monolithic sort at 2^20, 3.78 at 2^21, then segmented 1.15 at 2^22 down
+# to 0.78 at 2^25. The budget only moves batch ends, never a merge.
 _DISPATCH_TARGET_S = 12.0
-_RECOUNT_S_PER_ELEM = 35e-9
+_RECOUNT_S_PER_ELEM = 4.1e-9
 
 
 def _recount_budget(cap: int) -> int:

@@ -1,0 +1,53 @@
+"""Unicode backend of the pre-tokenizer: normalization and batch
+classification, in two implementations with one interface:
+
+* ``cpp-decoder``: the native decoder (``cpp/decoder.cpp``), built with g++
+  into ``gpu_bpe_tpu_torch/_build/`` at first use; the hot path;
+* ``python-unicodedata``: pure Python over ``unicodedata`` and the
+  reference's property data, for hosts without g++.
+
+``get_backend()`` returns the native one when it builds, logs which one it
+took, and ``backend_name()`` says which.
+"""
+
+from __future__ import annotations
+
+import logging
+
+from .fallback import CharClass, PyUnicodeBackend, class_table
+from .utf8 import utf8_byte_lengths, utf8_to_codepoints
+
+logger = logging.getLogger(__name__)
+
+_BACKEND = None
+
+
+def get_backend():
+    """The native backend if it builds and loads, else the Python one."""
+    global _BACKEND
+    if _BACKEND is None:
+        try:
+            from .cpp_backend import CppUnicodeBackend
+
+            _BACKEND = CppUnicodeBackend()
+        except Exception as e:  # noqa: BLE001 (no g++, or a failed build)
+            logger.warning("native Unicode decoder unavailable (%s); using the Python backend", e)
+            _BACKEND = PyUnicodeBackend()
+        logger.info("Unicode backend: %s", _BACKEND.name)
+    return _BACKEND
+
+
+def backend_name() -> str:
+    """Name of the backend ``get_backend()`` returns."""
+    return get_backend().name
+
+
+__all__ = [
+    "CharClass",
+    "PyUnicodeBackend",
+    "backend_name",
+    "class_table",
+    "get_backend",
+    "utf8_byte_lengths",
+    "utf8_to_codepoints",
+]

@@ -1,17 +1,21 @@
 """Where the time of the port's main path goes on one CUDA card.
 
-    python scripts/torch_profile_train.py [--mb 16] [--merges 1024]
+    python scripts/torch_profile_train.py [--mb 16] [--merges 1024] [--nodedup]
 
 Trains ``gpu_bpe_tpu_torch.Trainer(device="cuda")`` on chip_smoke.py's
 synthetic corpus (bench.py's 16 MB Zipfian text, seed 0) once untraced (for
-merges/s) and once under ``torch.profiler``, and prints JSON lines:
+merges/s) and once under ``torch.profiler``, and prints JSON lines. The
+stream is the byte-heuristic dedup stream, or with ``--nodedup`` the one
+``api.train(pre_tokenize=False)`` trains on (one symbol per byte, capacity
+2^25 at 16 MB, where the recount runs segmented):
 
 * ``run``: merges, recounts, wall seconds and merges/s of the untraced run;
 * ``device``: device busy time (sum of kernel and copy times on the card)
   of the traced run against its wall time, and the idle share;
 * ``by_kernel``: device time and calls per kernel name, the largest first;
 * ``host_reads``: device-to-host copies, in total and per merge (each is a
-  host sync of the Python merge loop).
+  host sync of the Python merge loop; a segmented recount adds one, its
+  summary count), and the traced run's recounts by path.
 
 The card's name and power limit are printed first (nvidia-smi).
 """
@@ -34,14 +38,16 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mb", type=int, default=16)
     ap.add_argument("--merges", type=int, default=1024)
+    ap.add_argument("--nodedup", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 2
 
     from chip_smoke import synth_corpus
-    from gpu_bpe_tpu_torch import Trainer
+    from gpu_bpe_tpu_torch import Trainer, api
     from gpu_bpe_tpu_torch.ops import build
+    from gpu_bpe_tpu_torch.ops import train_step as ts
     from gpu_bpe_tpu_torch.ops.ingest import make_stream
     from gpu_bpe_tpu_torch.pretok import byte_word_starts
 
@@ -50,7 +56,7 @@ def main() -> int:
     print(smi, flush=True)
     build.load()
     corpus = synth_corpus(args.mb << 20, seed=0)
-    stream = make_stream(corpus, byte_word_starts(corpus))
+    stream = api._byte_stream(corpus) if args.nodedup else make_stream(corpus, byte_word_starts(corpus))
     target = 256 + args.merges
 
     Trainer(device="cuda").train_stream(stream, target_vocab_size=256 + 64)  # warm-up
@@ -60,6 +66,7 @@ def main() -> int:
                       "merges_per_s": len(res.merges) / res.training_time_s}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ts.RECOUNTS.clear()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         traced = Trainer(device="cuda").train_stream(stream, target_vocab_size=target)
@@ -86,7 +93,8 @@ def main() -> int:
                       "rows": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]}),
           flush=True)
     print(json.dumps({"phase": "host_reads", "dtoh_copies": dtoh,
-                      "per_merge": dtoh / max(len(traced.merges), 1)}), flush=True)
+                      "per_merge": dtoh / max(len(traced.merges), 1), "recounts": traced.recounts,
+                      "recounts_by_path": dict(ts.RECOUNTS)}), flush=True)
     return 0
 
 

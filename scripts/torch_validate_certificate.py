@@ -1,44 +1,86 @@
 """Certificate soundness of the port at scale (CLAUDE.md invariant 4).
 
-    python scripts/torch_validate_certificate.py [--mb 64] [--merges 8192]
+    python scripts/torch_validate_certificate.py [--mb 64] [--merges 8192] [--device cuda]
 
-Trains gpu_bpe_tpu_torch.Trainer(device="cuda") three times on
-chip_smoke.py's synthetic Zipfian corpus (seed 0) cut to ``--mb`` MB:
+The JAX package's recipe (``scripts/validate_certificate.py``) on the port:
+chip_smoke.py's synthetic Zipfian corpus (bench.py's, seed 0) cut to
+``--mb`` MB, the port's Unicode ``PreTokenizer().pre_tokenize_bytes``, the
+unique-word dedup stream, ``gpu_bpe_tpu_torch.Trainer`` on ``--device``
+(the card unless "cpu" is asked for) to 256 + ``--merges`` tokens, three
+times, each in its own process (fresh kernel scratch, pools and caches):
 
-1. the certified run on the dedup stream;
+1. the certified run;
 2. the certified run on the same stream with its unique words in a
    permuted order (other positions, blocks and window picks);
 3. ``force_recount=True``: a full recount before every merge.
 
-All three merge lists (with counts) must be bitwise equal; the script
-prints one JSON line per run and exits non-zero on any difference.
+Each run prints one JSON line with the SHA-256 of ``json.dumps`` of its
+merge list ``[[a, b, id], ...]`` and of its counts, the recipe's
+serialisation. The three must be equal, and equal to the JAX package's
+record for the same corpus size and merges
+(``docs/artifacts/certificate_validation*.json``) where there is one; the
+script exits non-zero otherwise. The parent builds the stream once and
+hands it to the runs in a temporary ``.npz``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+RUNS = ("certified", "permuted", "force_recount")
 
 
-def permute_words(stream, seed: int):
-    """The same multiset of unique words (each with its weight) in a random
-    order."""
-    from gpu_bpe_tpu_torch.constants import WORD_START_BIT
+def recorded(mb: int, merges: int) -> dict | None:
+    """The JAX package's recorded hashes for ``mb`` MB / ``merges`` merges."""
+    for path in sorted((REPO / "docs" / "artifacts").glob("certificate_validation*.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("ok") and rec["corpus_mb"] == mb and rec["merges"] == merges:
+            return {"file": str(path.relative_to(REPO)), "sha_merges": rec["normal"]["sha_merges"],
+                    "sha_counts": rec["normal"]["sha_counts"]}
+    return None
+
+
+def hashes(result) -> dict:
+    blob = json.dumps([[a, b, c] for a, b, c in result.merges]).encode()
+    return {"sha_merges": hashlib.sha256(blob).hexdigest(),
+            "sha_counts": hashlib.sha256(json.dumps(result.merge_counts).encode()).hexdigest()}
+
+
+def permuted(symbols: np.ndarray, weights: np.ndarray):
+    """The recipe's permutation: each unique word's block moved, in a
+    deterministic random order."""
+    word_ids = np.cumsum((symbols >> 16) & 1) - 1
+    perm = np.random.default_rng(1234).permutation(int(word_ids[-1]) + 1)
+    order = np.argsort(perm[word_ids], kind="stable")
+    return symbols[order].copy(), weights[order].copy()
+
+
+def child(run: str, stream_path: str, merges: int, device: str) -> int:
+    from gpu_bpe_tpu_torch import Trainer
     from gpu_bpe_tpu_torch.convert import stream_from_numpy
 
-    sym, w = stream.symbols[: stream.n], stream.weights[: stream.n]
-    starts = np.flatnonzero(sym & WORD_START_BIT)
-    ends = np.append(starts[1:], stream.n)
-    order = np.random.default_rng(seed).permutation(len(starts))
-    idx = np.concatenate([np.arange(starts[i], ends[i]) for i in order])
-    return stream_from_numpy(sym[idx], w[idx], stream.n, stream.total_bytes)
+    z = np.load(stream_path)
+    sym, w = z["symbols"], z["weights"]
+    if run == "permuted":
+        sym, w = permuted(sym, w)
+    stream = stream_from_numpy(sym, w, len(sym), int(z["total_bytes"]))
+    r = Trainer(device=device, force_recount=run == "force_recount").train_stream(
+        stream, target_vocab_size=256 + merges)
+    print(json.dumps({"run": run, "stream_n": stream.n, "merges": len(r.merges), "recounts": r.recounts,
+                      "seconds": r.training_time_s, "merges_per_s": len(r.merges) / r.training_time_s,
+                      **hashes(r)}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -47,34 +89,53 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mb", type=int, default=64)
     ap.add_argument("--merges", type=int, default=8192)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--child", choices=RUNS, help=argparse.SUPPRESS)
+    ap.add_argument("--stream", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 2
-    from chip_smoke import synth_corpus
-    from gpu_bpe_tpu_torch import Trainer
-    from gpu_bpe_tpu_torch.ops.ingest import make_stream
-    from gpu_bpe_tpu_torch.pretok import byte_word_starts
+    if args.child:
+        return child(args.child, args.stream, args.merges, args.device)
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    from chip_smoke import synth_corpus
+    from gpu_bpe_tpu_torch.ops.ingest import make_stream
+    from gpu_bpe_tpu_torch.pretok import PreTokenizer
+    from gpu_bpe_tpu_torch.unicode import backend_name
+
+    if args.device == "cuda":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
     corpus = synth_corpus(args.mb << 20, seed=0)
-    stream = make_stream(corpus, byte_word_starts(corpus))
-    runs = {
-        "certified": (stream, {}),
-        "permuted": (permute_words(stream, 1), {}),
-        "force_recount": (stream, {"force_recount": True}),
-    }
+    pretok = PreTokenizer()  # builds the native decoder, outside the clock
+    t0 = time.perf_counter()
+    data, starts = pretok.pre_tokenize_bytes(corpus)
+    pretok_s = time.perf_counter() - t0
+    stream = make_stream(data, starts, dedup=True)
+    print(json.dumps({"phase": "stream", "device": args.device, "bytes": len(corpus), "backend": backend_name(),
+                      "pretokenize_s": pretok_s, "stream_n": stream.n}), flush=True)
+    want = recorded(args.mb, args.merges)
     results = {}
-    for name, (s, kw) in runs.items():
-        r = Trainer(device="cuda", **kw).train_stream(s, target_vocab_size=256 + args.merges)
-        results[name] = r
-        print(json.dumps({"run": name, "stream_n": s.n, "merges": len(r.merges),
-                          "recounts": r.recounts, "seconds": r.training_time_s,
-                          "merges_per_s": len(r.merges) / r.training_time_s}), flush=True)
-    ref = results["certified"]
-    ok = all(r.merges == ref.merges and r.merge_counts == ref.merge_counts for r in results.values())
-    print(json.dumps({"equal": ok, "merges": len(ref.merges)}))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "stream.npz")
+        np.savez(path, symbols=stream.symbols[: stream.n], weights=stream.weights[: stream.n],
+                 total_bytes=stream.total_bytes)
+        for run in RUNS:
+            p = subprocess.run([sys.executable, __file__, "--child", run, "--stream", path,
+                                "--merges", str(args.merges), "--device", args.device],
+                               capture_output=True, text=True)
+            if p.returncode != 0:
+                print(p.stderr[-3000:], file=sys.stderr)
+                return 1
+            results[run] = json.loads(p.stdout.strip().splitlines()[-1])
+            print(json.dumps(results[run]), flush=True)
+    keys = ("merges", "sha_merges", "sha_counts")
+    same = all(all(r[k] == results["certified"][k] for k in keys) for r in results.values())
+    matches = want is None or all(results["certified"][k] == want[k] for k in keys[1:])
+    ok = same and matches and results["certified"]["merges"] == args.merges
+    print(json.dumps({"equal": same, "recorded": want, "equal_to_recorded": matches if want else None,
+                      "merges": results["certified"]["merges"], "ok": ok}))
     return 0 if ok else 1
 
 

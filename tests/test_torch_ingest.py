@@ -77,7 +77,10 @@ def test_import_leaves_out_jax_and_the_reference_package():
     code = (
         "import sys, gpu_bpe_tpu_torch, gpu_bpe_tpu_torch.convert, gpu_bpe_tpu_torch.ops.build\n"
         "import gpu_bpe_tpu_torch.ops.tokenize, gpu_bpe_tpu_torch.ops.stab_kernels\n"
-        "import gpu_bpe_tpu_torch.core.encoder_ref\n"
+        "import gpu_bpe_tpu_torch.core.encoder_ref, gpu_bpe_tpu_torch.core.model_io\n"
+        "import gpu_bpe_tpu_torch.api, gpu_bpe_tpu_torch.models.bpe, gpu_bpe_tpu_torch.pretok\n"
+        "import gpu_bpe_tpu_torch.unicode, gpu_bpe_tpu_torch.unicode.cpp_backend, gpu_bpe_tpu_torch.trie\n"
+        "gpu_bpe_tpu_torch.unicode.get_backend()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu') "
         "or m.startswith(('jax.', 'gpu_bpe_tpu.'))]\n"
         "print(bad)\n"
