@@ -17,7 +17,10 @@ Phases, each printing one JSON line:
    capacity of the shrink ladder from 2^19 down to 2^11 called one after
    another (the cached scratch must stay clean across capacities), an
    unaligned view and calls on a second stream; the probe-less mode (a
-   window with every slot dead, three streams); count_pairs2 on pairs
+   window with every slot dead, three streams, and the call with no window
+   on the real first merge at the shard capacities of a split over 1 and 2
+   ranks, called in turn, against its plain version and the dead-window
+   call; its times beside the window-mode call's); count_pairs2 on pairs
    whose token Z sits only at the first and the last live position;
    window_post's scalars as the main path passes them (bool flags, 0-d
    int64 views, one-element slices) and as Python ints. Bitwise comparison
@@ -94,10 +97,19 @@ Phases, each printing one JSON line:
    the three paths no other run reaches, each through `api.encode_bulk`
    and held on a cut to the port's CPU path and `GreedyTrieEncoder`:
    multi-pass slicing (17 MB with the 64K vocab), the gather walk (80-byte
-   tokens) and the rank chain's full-width fallback.
+   tokens) and the rank chain's full-width fallback;
+14. dist_train: `api.train(backend="dist")` on phase 11's corpus and recipe,
+   in a one-rank NCCL group on the card: the merge list and counts must
+   hash to the same JAX record; merges/s, recounts, duals, collectives and
+   host reads per merge, and the launches (the probe-less merge only);
+15. dist_train_2rank: two processes (this script with `--dist-worker`), a
+   gloo group on the one card, train phase 4's stream for 1024 merges: both
+   merge lists must equal phase 4's; shard sizes, merges/s, and the
+   transport of the collectives (gloo takes the CUDA tensors as they are;
+   nothing is staged by the port).
 
 The launch counts of the kernels' line are the sums over the main-path
-runs (phases 4, 8 and 11-13), each counted from 0.
+runs (phases 4, 8 and 11-15, every rank's in phase 15), each counted from 0.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -145,7 +157,11 @@ KERNELS = {
     "expand_to_mask": (f"{CSRC}/expand_to_mask.cu", f"{PALLAS}:943"),
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
 }
+PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
+KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
 TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
+DIST_RANKS = 2  # the ranks of the two-rank phase, both on the one card
+DIST_TIMEOUT_S = 300  # the two-rank phase's process group and processes
 TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
 
 
@@ -578,7 +594,62 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     if round(rows["count_pairs2"]["device_ops"]) != 1:
         raise AssertionError(f"count_pairs2 put {rows['count_pairs2']['device_op_names']} on the card "
                              "per call, want exactly one kernel")
+    rows[PROBE_LESS] = probe_less_phase(torch, kernels, real_stream, real[4], real[6], real[7], dev)
     return rows
+
+
+def probe_less_phase(torch, kernels, padded, pair, cand, counts, dev) -> dict:
+    """Phase 3, the probe-less mode (no window; the data-parallel trainer's):
+    the real first merge of the 16 MB stream on each shard of a split over
+    1 and 2 ranks (shard capacities that are multiples of 1024, not powers
+    of two), called with the capacities in turn (1 rank, 2 ranks' rank 0
+    and rank 1, 1 rank again), each bitwise against its plain version and
+    against the window-mode call with every slot dead. Then its times at
+    the 1-rank shard, in turns with the window-mode call on the real window
+    at the same inputs."""
+    from gpu_bpe_tpu_torch.parallel import shard_stream
+
+    n_all = padded.n
+    shards = {d: shard_stream(padded.symbols[:n_all], padded.weights[:n_all], d) for d in (1, DIST_RANKS)}
+    dead = (torch.full((256,), 0xFFFFFFFF, dtype=torch.int64, device=dev),
+            torch.full((256,), -1, dtype=torch.int64, device=dev))
+    err, details = 0.0, []
+    for d, r in ((1, 0), (DIST_RANKS, 0), (DIST_RANKS, 1), (1, 0)):
+        sym, w, n = shards[d]
+        args = (torch.from_numpy(sym[r].view(np.int32)).to(dev), torch.from_numpy(w[r]).to(dev),
+                torch.tensor(int(n[r]), device=dev), torch.tensor(pair, device=dev), torch.tensor(256, device=dev))
+        got = kernels.merge_compact_tracked(*args)
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        if len(got) != 6:
+            raise AssertionError(f"the probe-less call returned {len(got)} outputs, want 6")
+        e = max(max_abs_diff(got, kernels.merge_compact_tracked_plain(*args)),
+                max_abs_diff(got, kernels.merge_compact_tracked(*args, *dead)[:6]))
+        err = max(err, e)
+        details.append({"ranks": d, "rank": r, "capacity": int(sym.shape[1]), "n": int(n[r]), "n_new": int(got[2]),
+                        "samp": got[5].tolist(), "max_abs_err": e})
+    if err != 0.0:
+        raise AssertionError(f"the probe-less merge disagrees with its plain version or the dead-window call: "
+                             f"{details}")
+    sym, w, n = shards[1]
+    n1, cap1 = int(n[0]), int(sym.shape[1])
+    args = (torch.from_numpy(sym[0].view(np.int32)).to(dev), torch.from_numpy(w[0]).to(dev),
+            torch.tensor(n1, device=dev), torch.tensor(pair, device=dev), torch.tensor(256, device=dev))
+    window = (torch.from_numpy(cand).to(dev), torch.from_numpy(counts).to(dev))
+    kern = lambda: kernels.merge_compact_tracked(*args)  # noqa: E731
+    ms, window_ms = time_in_turns(torch, [kern, lambda: kernels.merge_compact_tracked(*args, *window)], 20)
+    plain_ms = time_ms(torch, lambda: kernels.merge_compact_tracked_plain(*args), 3)
+    prof = dict(host_ms=host_ms(torch, kern), **device_profile(torch, kern))
+    nbytes = 8 * n1 + 8 * cap1 + 2 * 256 * 4 + 4 * 8 + 8  # stream in, stream and tail out, bins, samp, n'
+    row = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               max_abs_err=err, window_mode_ms=window_ms, **prof)
+    emit({"phase": "kernel", "name": PROBE_LESS, "cases": len(details), "max_abs_err": err, "tolerance": 0,
+          "ms": ms, "window_mode_ms": window_ms, "plain_ms": plain_ms, **prof, "bytes": nbytes,
+          "bound_ms": row["bound_ms"], "bound_by": "bytes", "shape": {"capacity": cap1, "n": n1},
+          "shards": details})
+    if round(prof["device_ops"]) > 2:
+        raise AssertionError(f"the probe-less merge put {prof['device_op_names']} on the card per call, "
+                             "want at most two kernels")
+    return row
 
 
 # ───────────────────────────── tokenize phases ─────────────────────────────
@@ -1152,6 +1223,137 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -
             launches[k] += v
 
 
+@contextmanager
+def counted_collectives():
+    """Count the torch.distributed collectives called while the block runs,
+    by name."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor")
+    counts = Counter()
+    originals = {name: getattr(dist, name) for name in names}
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            counts[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def dist_phases(torch, corpus: bytes, stream, main_merges, launches: dict) -> None:
+    """Phases 14-15: the data-parallel trainer on the card. Adds the probe-less
+    merge's launches of both runs (every rank's) to ``launches``."""
+    import socket
+
+    from gpu_bpe_tpu_torch import api
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.parallel import dist_train
+
+    # ── phase 14: api.train(backend="dist"), one rank, NCCL ──
+    kernels.LAUNCHES.clear()
+    dist_train.HOST_READS.clear()
+    events = []
+    with counted_collectives() as coll:
+        _, res = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, backend="dist", show_progress=False),
+                           on_progress=events.append)
+        torch.cuda.synchronize()
+    run_launches = {k: kernels.LAUNCHES[k] for k in (PROBE_LESS, *TRAIN_KERNELS)}
+    record = json.loads((REPO / CERT16).read_text())["normal"]
+    got = sha_pair(res)
+    n_merges = len(res.merges)
+    reads = dict(dist_train.HOST_READS)
+    emit({"phase": "dist_train", "ranks": 1, "backend": "nccl", "bytes": len(corpus), "merges": n_merges,
+          "seconds": res.training_time_s, "merges_per_s": n_merges / res.training_time_s,
+          "recounts": res.recounts, "duals": res.duals, "collectives": dict(coll),
+          "collectives_per_merge": sum(coll.values()) / n_merges, "host_reads": reads,
+          "host_reads_per_merge": sum(reads.values()) / n_merges, "launches": run_launches, **got,
+          "record": CERT16, "equal_to_record": got == {k: record[k] for k in got}})
+    if got != {k: record[k] for k in got}:
+        raise AssertionError(f"api.train(backend='dist')'s merge list hashes {got}, the JAX package recorded {record}")
+    if run_launches[PROBE_LESS] <= 0 or any(run_launches[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"the dist path must run the probe-less merge and only it: {run_launches}")
+    launches[PROBE_LESS] += run_launches[PROBE_LESS]
+
+    # ── phase 15: two ranks on the one card over gloo ──
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(f"{tmp}/stream.npz", symbols=stream.symbols[: stream.n], weights=stream.weights[: stream.n],
+                 total=stream.total_bytes)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker", addr, str(r), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(DIST_RANKS)]
+        try:
+            done = [p.communicate(timeout=DIST_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, (_, err)) in enumerate(zip(procs, done)):
+            if p.returncode != 0:
+                raise AssertionError(f"dist rank {r} exited with {p.returncode}:\n{err[-4000:]}")
+        ranks = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+    equal = [[tuple(m) for m in rk["merges"]] == main_merges for rk in ranks]
+    first = ranks[0]
+    emit({"phase": "dist_train_2rank", "ranks": DIST_RANKS, "device": "cuda:0", "backend": "gloo",
+          "transport": first["transport"], "shard_n": first["shard_n"], "capacity": first["capacity"],
+          "merges": len(first["merges"]), "seconds": first["seconds"],
+          "merges_per_s": len(first["merges"]) / first["seconds"], "recounts": first["recounts"],
+          "duals": first["duals"], "collectives_per_merge": first["collectives"] / len(first["merges"]),
+          "launches": [rk["launches"] for rk in ranks], "equal_to_main_path": equal})
+    if not all(equal) or any(rk["launches"] <= 0 for rk in ranks):
+        raise AssertionError(f"two ranks: merge lists equal to phase 4 {equal}, launches "
+                             f"{[rk['launches'] for rk in ranks]}")
+    launches[PROBE_LESS] += sum(rk["launches"] for rk in ranks)
+
+
+def dist_worker(addr: str, rank: int, tmp: str) -> int:
+    """One rank of phase 15: joins a gloo group of DIST_RANKS processes on
+    cuda:0, trains phase 4's stream for MERGES merges and writes its result
+    to ``tmp``. The collectives hand gloo the CUDA tensors as they are; a
+    gloo that refused them would fail the phase."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops.ingest import SymbolStream
+    from gpu_bpe_tpu_torch.parallel import DataGroup, DistributedTrainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=DIST_RANKS, rank=rank,
+                            timeout=timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        group = DataGroup.current("cuda:0")
+        z = np.load(f"{tmp}/stream.npz")
+        stream = SymbolStream(symbols=z["symbols"], weights=z["weights"], n=len(z["symbols"]),
+                              total_bytes=int(z["total"]))
+        kernels.LAUNCHES.clear()
+        with counted_collectives() as coll:
+            res = DistributedTrainer(group).train_stream(stream, target_vocab_size=256 + MERGES)
+            torch.cuda.synchronize()
+        from gpu_bpe_tpu_torch.parallel import shard_stream
+
+        sym, _, n = shard_stream(stream.symbols, stream.weights, DIST_RANKS)
+        out = {"merges": res.merges, "counts": res.merge_counts, "seconds": res.training_time_s,
+               "recounts": res.recounts, "duals": res.duals, "transport": "gloo-cuda", "shard_n": n.tolist(),
+               "capacity": int(sym.shape[1]), "collectives": sum(coll.values()),
+               "launches": kernels.LAUNCHES[PROBE_LESS]}
+        Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -1315,6 +1517,8 @@ def main() -> int:
     del calls
 
     api_phases(torch, corpus, vocabs, launches, rows)
+    launches[PROBE_LESS] = 0
+    dist_phases(torch, corpus, stream, res.merges, launches)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
@@ -1329,4 +1533,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

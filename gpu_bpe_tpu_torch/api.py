@@ -4,7 +4,9 @@ of ``gpu_bpe_tpu/api.py``), with backend selection:
 * ``backend="cuda"``: device-resident training (``ops.Trainer``) on
   ``TrainConfig.device``, the card unless ``device="cpu"``;
 * ``backend="cpu"``: the exact-semantics oracle (``core.ReferenceTrainer``);
-* ``backend="dist"``: the data-parallel trainer, not ported yet.
+* ``backend="dist"``: the data-parallel trainer (``parallel``) over the
+  process group set up by ``parallel.init_multihost``, or over a group of
+  this process alone on ``TrainConfig.device`` when there is none.
 
 Streamed training from files (``train_files``) waits for the port of the
 native and streamed ingest (ROADMAP.md queue 1, item 3).
@@ -32,7 +34,7 @@ class TrainConfig:
 
     vocab_size: int = 4096
     backend: str = "cuda"  # cuda | cpu | dist
-    device: str = "cuda"  # where backend "cuda" runs: the card, or "cpu"
+    device: str = "cuda"  # where backends "cuda" and "dist" run: the card, or "cpu"
     pre_tokenize: bool = True  # Unicode word boundaries (else the byte heuristic, no dedup)
     dedup: bool = True  # unique-word multiset (exact, faster)
     shuffle: bool = False  # paragraph shuffle at ingest
@@ -96,10 +98,7 @@ def train(
 ) -> tuple[BPETokenizer, TrainingResult]:
     """Train a BPE tokenizer. Returns (tokenizer, full training result)."""
     config = config or TrainConfig()
-    if config.backend == "dist":
-        raise NotImplementedError(
-            "backend='dist' is not ported yet (ROADMAP.md queue 1, item 7: distributed)")
-    if config.backend not in ("cuda", "cpu"):
+    if config.backend not in ("cuda", "cpu", "dist"):
         raise ValueError(f"backend must be 'cuda', 'cpu' or 'dist', got {config.backend!r}")
     if isinstance(corpus, list):
         corpus = build_corpus(corpus, config.shuffle, config.seed)
@@ -115,7 +114,8 @@ def train(
 
     with _profile_ctx(config):
         result = _train_backend(config, data, starts, on_progress)
-    tokenizer = BPETokenizer.from_training_result(result, backend=config.backend, device=config.device)
+    tokenizer = BPETokenizer.from_training_result(
+        result, backend="cpu" if config.backend == "cpu" else "cuda", device=config.device)
     return tokenizer, result
 
 
@@ -127,7 +127,7 @@ def _profile_ctx(config: TrainConfig):
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if config.backend == "cuda" and config.device != "cpu":
+    if config.backend != "cpu" and config.device != "cpu":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     logger.info("capturing a torch.profiler trace to %s", config.profile_dir)
     return torch.profiler.profile(
@@ -143,6 +143,14 @@ def _train_backend(config: TrainConfig, data, starts, on_progress) -> TrainingRe
         else:
             symbols = tag_word_boundaries_bytes(symbols)
         return ReferenceTrainer().train(symbols, config.vocab_size, on_progress)
+
+    if config.backend == "dist":
+        from .ops.trainer import resolve_device
+        from .parallel import DistributedTrainer, one_rank_group
+
+        with one_rank_group(resolve_device(config.device)) as group:
+            trainer = DistributedTrainer(group, batch_merges=config.batch_merges)
+            return trainer.train(data, starts, config.vocab_size, config.dedup, on_progress)
 
     from .ops import Trainer
 

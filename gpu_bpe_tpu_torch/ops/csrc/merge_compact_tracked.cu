@@ -1,9 +1,27 @@
 // merge_compact_tracked: one BPE merge (a,b) -> Z with stable compaction,
-// created-pair tracking and exact probe counts, in window-probe mode.
+// created-pair tracking and, in window-probe mode, exact probe counts.
 //
 // Replaces the TPU kernel `_merge_compact_kernel` of
 // gpu_bpe_tpu/ops/pallas_kernels.py:136 (public entry
-// `merge_compact_tracked`, pallas_kernels.py:1289).
+// `merge_compact_tracked`, pallas_kernels.py:1289, in window mode and in
+// probe-less mode; `merge_compact`, pallas_kernels.py:625, is the latter).
+//
+// Modes: with a candidate window (cand, counts) the block that draws tile
+// 0 derives the probe list from it and the tracking pass counts each probe.
+// With null window pointers (the probe-less mode of the data-parallel
+// trainer, parallel/dist_train.py) that set-up is skipped: tile 0 only
+// records that nothing is probed, and no window is read.
+//
+// samp: per side, the heaviest created pair's weight and, among the pairs
+// of that weight, the smallest token over the whole stream. That is the
+// function the data-parallel trainer needs: the JAX package's own
+// distributed path takes the same global minimum token on each shard
+// (gpu_bpe_tpu/parallel/dist_train.py:150-157) and then the minimum over
+// the shards attaining the maximum weight (:159-160). The Pallas kernel's
+// token on a tie across its 32K-entry blocks is that of the earliest block
+// reaching the weight, an artefact of the TPU's block layout; any tied
+// token is sound for the histogram exclusion (:220-231), which subtracts
+// that pair's exact count from its bin.
 //
 // Bound on this card: bytes. The work is a few integer compares per
 // symbol; the least traffic is reading symbols and weights once (8 B per
@@ -29,9 +47,9 @@
 //      as contiguous runs (weights read at the kept offsets). The same pass
 //      writes the zero tail [n', cap): the r-th removal of the stream
 //      zeroes output n - 1 - r (so [n', n) needs no n'), and each tile
-//      zeroes its own slots at or past n. The block that draws tile 0 also
-//      computes the affected window slots, the probe list, n_aff and the
-//      effective probe count.
+//      zeroes its own slots at or past n. In window mode the block that
+//      draws tile 0 also computes the affected window slots, the probe
+//      list, n_aff and the effective probe count (0 with no window).
 //   B. track: one pass over adjacent pairs of the compacted output (in L2
 //      right after A; all of a thread's 16-byte loads issued first),
 //      folding the left/right created-pair histograms (integer atomics in
@@ -256,7 +274,12 @@ merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long lo
         out_w[q] = 0;
     }
 
-    if (tile == 0) {  // the probe set-up, one window slot per thread
+    if (tile == 0 && cand == nullptr) {  // probe-less mode: nothing to probe
+        if (t == 0) {
+            scratch[SC_NPE] = 0;
+            arena[AR_NAFF] = 0;
+        }
+    } else if (tile == 0) {  // the probe set-up, one window slot per thread
         const uint32_t c = as_u32(cand[t]);
         // affected set (the _post_counts theorem): live slots whose pair
         // ends in a or starts with b, excluding (a,b) itself
@@ -434,6 +457,8 @@ extern "C" long long mc_arena_words() { return AR_WORDS; }
 
 // out: [2, cap] int32 (merged symbols, then weights); arena: mc_arena_words()
 // int64 words (n_new, bins as 2 x NBINS f32, samp[4], pcnt, probes, n_aff).
+// cand and counts are the W_SLOTS-slot window, or both null for the
+// probe-less mode (then pcnt is zero and probes is left unwritten).
 extern "C" int merge_compact_tracked(const int* sym, const int* w, long long cap, const long long* n,
                                      const long long* pair, const long long* new_id,
                                      const long long* cand, const long long* counts, int* out,

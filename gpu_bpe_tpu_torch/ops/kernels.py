@@ -47,6 +47,7 @@ INVALID = 0xFFFFFFFF
 I32_MAX = 2**31 - 1
 
 LAUNCHES: Counter = Counter()  # kernel launches per wrapper; clear() to reset
+PROBE_LESS = "merge_compact_tracked/probe-less"  # LAUNCHES key of the no-window mode
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -181,8 +182,9 @@ def window_probes(cand: torch.Tensor, counts: torch.Tensor, pair: torch.Tensor):
     return probes, n_aff
 
 
-def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts):
-    """Plain PyTorch version of ``merge_compact_tracked`` (same outputs)."""
+def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, counts=None):
+    """Plain PyTorch version of ``merge_compact_tracked`` (same outputs, the
+    6-tuple without a window)."""
     dev = symbols.device
     cap = symbols.shape[0]
     n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
@@ -231,6 +233,11 @@ def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
     sl = sample(lm, vw, ut, any_l, any_r)
     sr = sample(rm, uw, vt, any_r, any_l)
     samp = torch.tensor([sl[0], sl[1], sr[0], sr[1]], dtype=torch.int64, device=dev)
+    bins_l = acc_l.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
+    bins_r = acc_r.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
+    n_new_t = torch.tensor(n_new, dtype=torch.int64, device=dev)
+    if cand is None:
+        return sym2, w2, n_new_t, bins_l, bins_r, samp
 
     probes, n_aff = window_probes(cand, counts, pair)
     npe = int(n_aff) if int(n_aff) <= N_PROBES else 0
@@ -238,10 +245,6 @@ def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
     pairs = (ut << 16) | vt
     for k in range(npe):
         pcnt[k] = uw[v_ok & (pairs == probes[k])].sum()
-
-    bins_l = acc_l.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
-    bins_r = acc_r.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
-    n_new_t = torch.tensor(n_new, dtype=torch.int64, device=dev)
     return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt, probes, n_aff.to(torch.int64)
 
 
@@ -273,14 +276,16 @@ def merge_arenas(count: int, device) -> list:
     return [(base + i * row, v) for i, v in enumerate(views)]
 
 
-def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
+def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=None):
     """One merge ``pair`` -> ``new_id`` with stable compaction, created-pair
-    tracking and window-mode probe counts.
+    tracking and, in window mode, probe counts.
 
     ``symbols``/``weights`` are int32 ``[cap]``, live in ``[0, n)``; what
     lies past ``n`` is never matched. ``cand``/``counts`` are the int64
-    ``[W_SLOTS]`` candidate window. Returns ``(sym2, w2, n_new, bins_l,
-    bins_r, samp, pcnt, probes, n_aff)``:
+    ``[W_SLOTS]`` candidate window, or both None for the probe-less mode
+    (the data-parallel trainer's; the kernel then reads no window and skips
+    the probe set-up). Returns ``(sym2, w2, n_new, bins_l, bins_r, samp,
+    pcnt, probes, n_aff)`` in window mode, the first six without a window:
 
     * ``sym2``/``w2``: the merged, compacted stream, zero past ``n_new``;
       a site becomes ``new_id | (sym & WS_BIT)``, the overlap-collapse
@@ -297,10 +302,19 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
       pair-stream count (valid for the first ``n_aff`` slots when
       ``n_aff <= N_PROBES``; nothing is probed otherwise).
 
+    The ``samp`` rule (weight descending, then token ascending over the
+    whole stream) is the one the data-parallel trainer reduces across
+    ranks; see the notes of ``merge_compact_tracked.cu``.
+
     On the card the small outputs are views of an allocation shared by
-    ``POOL_CALLS`` calls (``merge_arenas``), each call's its own.
+    ``POOL_CALLS`` calls (``merge_arenas``), each call's its own. Window-mode
+    launches count under ``merge_compact_tracked`` in ``LAUNCHES``,
+    probe-less ones under ``PROBE_LESS``.
     """
-    if _on_cpu(symbols, weights, cand, counts):
+    window = () if cand is None and counts is None else (cand, counts)
+    if len(window) and (cand is None or counts is None):
+        raise ValueError("merge_compact_tracked: give both cand and counts, or neither")
+    if _on_cpu(symbols, weights, *window):
         return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
     from .build import load
 
@@ -308,8 +322,9 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
     cap = symbols.shape[0]
     _require(symbols, torch.int32, (cap,), "symbols")
     _require(weights, torch.int32, (cap,), "weights")
-    _require(cand, torch.int64, (W_SLOTS,), "cand")
-    _require(counts, torch.int64, (W_SLOTS,), "counts")
+    if window:
+        _require(cand, torch.int64, (W_SLOTS,), "cand")
+        _require(counts, torch.int64, (W_SLOTS,), "counts")
     if cap < 1:
         raise ValueError("merge_compact_tracked: empty stream")
     n, pair, new_id = _dev_scalar(n, dev), _dev_scalar(pair, dev), _dev_scalar(new_id, dev)
@@ -323,12 +338,22 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand, counts):
     with _on_device(dev):
         rc = lib.merge_compact_tracked(
             symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair.data_ptr(), new_id.data_ptr(),
-            cand.data_ptr(), counts.data_ptr(), out.data_ptr(), arena, scratch.data_ptr(), stream,
+            cand.data_ptr() if window else 0, counts.data_ptr() if window else 0, out.data_ptr(), arena,
+            scratch.data_ptr(), stream,
         )
     _check_scratch(rc, "merge_compact_tracked", key)
-    LAUNCHES["merge_compact_tracked"] += 1
+    LAUNCHES["merge_compact_tracked" if window else PROBE_LESS] += 1
     sym2, w2 = out.unbind(0)
+    if not window:
+        return sym2, w2, n_new, bins_l, bins_r, samp
     return sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff
+
+
+def merge_compact(symbols, weights, n, pair, new_id):
+    """One merge with full stable compaction of a hole-free stream:
+    ``(sym2, w2, n_new)`` of the probe-less ``merge_compact_tracked``
+    (counterpart of the Pallas ``merge_compact``)."""
+    return merge_compact_tracked(symbols, weights, n, pair, new_id)[:3]
 
 
 # ─────────────────────────────── count_pairs2 ────────────────────────────────

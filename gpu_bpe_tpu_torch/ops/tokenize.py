@@ -636,6 +636,14 @@ def chunk_walk_gather(match_id, match_len, data, input_len: int, chunk_size: int
     return toks
 
 
+def _concrete(device: torch.device) -> torch.device:
+    """``device`` with its index: a CUDA device without one is the current
+    card (the device a tensor moved there reports)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Tokenizer:
     """Bulk greedy tokenizer: match table, chunk walk and PAD strip on the
     device (counterpart of ``TPUTokenizer``, ``tokenize.py:1044``).
@@ -646,7 +654,12 @@ class Tokenizer:
     size, each padded to a power-of-two capacity of at least 2^16.
     ``rank_mode``: None (rank space on CUDA for passes >= 2^20 bytes, full
     width on the CPU), "off" (full width) or "on" (rank space on either
-    device). Runs on the card unless ``device="cpu"``."""
+    device). Runs on the card unless ``device="cpu"``.
+
+    ``devices``: the devices that take the passes of one input in turn (the
+    JAX package's round robin, ``tokenize.py:1123-1154``); the default is
+    ``device`` alone. At most ``max(2, len(devices) + 1)`` passes are in
+    flight; the ids equal those of passes run one after another."""
 
     def __init__(
         self,
@@ -655,10 +668,12 @@ class Tokenizer:
         max_pass_bytes: int = 1 << 25,
         rank_mode: str | None = None,
         device: str | torch.device = "cuda",
+        devices: list | None = None,
     ):
         if rank_mode not in (None, "off", "on"):
             raise ValueError(f"rank_mode must be None, 'off' or 'on', got {rank_mode!r}")
-        self.device = resolve_device(device)
+        self.device = _concrete(resolve_device(device))
+        self.devices = [_concrete(resolve_device(d)) for d in devices] if devices else [self.device]
         self.vocab = [bytes(v) for v in vocab]
         self.tables = MatchTables.from_vocab(self.vocab)
         self.rank_mode = rank_mode
@@ -669,8 +684,12 @@ class Tokenizer:
             max_pass_bytes = min(max_pass_bytes, 1 << 24)
         slice_bytes = max(max_pass_bytes, self.chunk_size)
         self.max_pass_bytes = (slice_bytes // self.chunk_size) * self.chunk_size
-        self._stab_rows = _StabTables(self.tables.stab, self.device) if self.tables.stab else None
-        self._dense = _DenseTables(self.tables, self.device)
+        self._on_device = {}  # device -> (stab rows, dense tables) there
+        for dev in [self.device, *self.devices]:
+            if dev not in self._on_device:
+                stab = _StabTables(self.tables.stab, dev) if self.tables.stab else None
+                self._on_device[dev] = (stab, _DenseTables(self.tables, dev))
+        self._stab_rows, self._dense = self._on_device[self.device]
 
     @classmethod
     def from_model(cls, model, **kw) -> "Tokenizer":
@@ -689,30 +708,53 @@ class Tokenizer:
         ``input_len`` bytes are the input: returns (ids, total), ``ids``
         int32 ``[len(buf)]`` whose first ``total`` entries are the token
         ids, ``total`` a 0-d int64 tensor."""
-        mid, mlen = build_match_table(buf, self.tables, self._stab_rows, self._dense, input_len,
+        stab_rows, dense = self._on_device[buf.device]
+        mid, mlen = build_match_table(buf, self.tables, stab_rows, dense, input_len,
                                       self.chunk_size, self.rank_mode)
         walk = chunk_walk if self.tables.max_token_len <= _MAX_WALK_STEP else chunk_walk_gather
         tokens = walk(mid, mlen, buf, input_len, self.chunk_size)
         return compact_valid(_i32(tokens.reshape(-1)))
 
     def encode_bytes(self, data: bytes) -> np.ndarray:
-        """Token ids of ``data`` (uint32), pass by pass."""
+        """Token ids of ``data`` (uint32). The passes go to ``devices`` in
+        turn; the oldest pass in flight is read back once the window of
+        ``max(2, len(devices) + 1)`` passes is full."""
         data = bytes(data)
         if not data:
             return np.zeros(0, dtype=np.uint32)
-        parts = [self._encode_single_pass(data[off : off + self.max_pass_bytes])
-                 for off in range(0, len(data), self.max_pass_bytes)]
+        window = max(2, len(self.devices) + 1)
+        parts: list[np.ndarray] = []
+        in_flight: list[tuple] = []
+        for i, off in enumerate(range(0, len(data), self.max_pass_bytes)):
+            dev = self.devices[i % len(self.devices)]
+            in_flight.append(self._start_pass(data[off : off + self.max_pass_bytes], dev))
+            if len(in_flight) >= window:
+                parts.append(self._finish_pass(*in_flight.pop(0)))
+        parts.extend(self._finish_pass(*p) for p in in_flight)
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
-    def _encode_single_pass(self, data: bytes) -> np.ndarray:
+    def _start_pass(self, data: bytes, device: torch.device):
+        """Enqueue one pass on ``device``: its ids as int16 bits (ids are
+        16-bit) and its total, whose copy to the host is started without
+        waiting (into pinned memory, with an event, on a card)."""
         n = len(data)
         buf = np.zeros(self.capacity(n), dtype=np.uint8)
         buf[:n] = np.frombuffer(data, dtype=np.uint8)
-        ids, total = self.encode_pass(torch.from_numpy(buf).to(self.device), n)
-        ids = ids[: int(total)]
-        # ids are 16-bit: the host reads them back as int16 bits
+        ids, total = self.encode_pass(torch.from_numpy(buf).to(device), n)
         ids16 = torch.where(ids >= 0x8000, ids - 0x10000, ids).to(torch.int16)
-        return ids16.cpu().numpy().view(np.uint16).astype(np.uint32)
+        if device.type != "cuda":
+            return ids16, total, None
+        total_host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        total_host.copy_(total, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        return ids16, total_host, done
+
+    @staticmethod
+    def _finish_pass(ids16: torch.Tensor, total: torch.Tensor, done) -> np.ndarray:
+        if done is not None:
+            done.synchronize()
+        return ids16[: int(total)].cpu().numpy().view(np.uint16).astype(np.uint32)
 
     def decode(self, tokens) -> bytes:
         return decode_tokens(tokens, self.vocab)

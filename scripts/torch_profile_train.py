@@ -1,13 +1,16 @@
 """Where the time of the port's main path goes on one CUDA card.
 
-    python scripts/torch_profile_train.py [--mb 16] [--merges 1024] [--nodedup]
+    python scripts/torch_profile_train.py [--mb 16] [--merges 1024] [--nodedup | --dist]
 
 Trains ``gpu_bpe_tpu_torch.Trainer(device="cuda")`` on chip_smoke.py's
 synthetic corpus (bench.py's 16 MB Zipfian text, seed 0) once untraced (for
 merges/s) and once under ``torch.profiler``, and prints JSON lines. The
 stream is the byte-heuristic dedup stream, or with ``--nodedup`` the one
 ``api.train(pre_tokenize=False)`` trains on (one symbol per byte, capacity
-2^25 at 16 MB, where the recount runs segmented):
+2^25 at 16 MB, where the recount runs segmented). ``--dist`` trains the
+dedup stream with the data-parallel ``DistributedTrainer`` in a one-rank
+NCCL group instead, and adds its collectives and host reads by site to
+``host_reads``:
 
 * ``run``: merges, recounts, wall seconds and merges/s of the untraced run;
 * ``device``: device busy time (sum of kernel and copy times on the card)
@@ -23,6 +26,7 @@ The card's name and power limit are printed first (nvidia-smi).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -38,13 +42,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mb", type=int, default=16)
     ap.add_argument("--merges", type=int, default=1024)
-    ap.add_argument("--nodedup", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--nodedup", action="store_true")
+    mode.add_argument("--dist", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 2
 
-    from chip_smoke import synth_corpus
+    from chip_smoke import counted_collectives, synth_corpus
     from gpu_bpe_tpu_torch import Trainer, api
     from gpu_bpe_tpu_torch.ops import build
     from gpu_bpe_tpu_torch.ops import train_step as ts
@@ -59,19 +65,30 @@ def main() -> int:
     stream = api._byte_stream(corpus) if args.nodedup else make_stream(corpus, byte_word_starts(corpus))
     target = 256 + args.merges
 
-    Trainer(device="cuda").train_stream(stream, target_vocab_size=256 + 64)  # warm-up
-    res = Trainer(device="cuda").train_stream(stream, target_vocab_size=target)
-    print(json.dumps({"phase": "run", "merges": len(res.merges), "recounts": res.recounts,
-                      "seconds": res.training_time_s,
-                      "merges_per_s": len(res.merges) / res.training_time_s}), flush=True)
+    with contextlib.ExitStack() as stack:
+        if args.dist:
+            from gpu_bpe_tpu_torch.parallel import DistributedTrainer, dist_train, one_rank_group
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ts.RECOUNTS.clear()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        traced = Trainer(device="cuda").train_stream(stream, target_vocab_size=target)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            group = stack.enter_context(one_rank_group("cuda"))
+            make = lambda: DistributedTrainer(group)  # noqa: E731
+        else:
+            make = lambda: Trainer(device="cuda")  # noqa: E731
+        make().train_stream(stream, target_vocab_size=256 + 64)  # warm-up
+        res = make().train_stream(stream, target_vocab_size=target)
+        print(json.dumps({"phase": "run", "merges": len(res.merges), "recounts": res.recounts,
+                          "duals": res.duals, "seconds": res.training_time_s,
+                          "merges_per_s": len(res.merges) / res.training_time_s}), flush=True)
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ts.RECOUNTS.clear()
+        if args.dist:
+            dist_train.HOST_READS.clear()
+        with torch.profiler.profile(activities=acts) as prof, counted_collectives() as coll:
+            t0 = time.perf_counter()
+            traced = make().train_stream(stream, target_vocab_size=target)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        extra = {"collectives": dict(coll), "host_reads_by_site": dict(dist_train.HOST_READS)} if args.dist else {}
     by_kernel = {}
     dtoh = 0
     for ev in prof.events():
@@ -94,7 +111,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"phase": "host_reads", "dtoh_copies": dtoh,
                       "per_merge": dtoh / max(len(traced.merges), 1), "recounts": traced.recounts,
-                      "recounts_by_path": dict(ts.RECOUNTS)}), flush=True)
+                      "recounts_by_path": dict(ts.RECOUNTS), **extra}), flush=True)
     return 0
 
 

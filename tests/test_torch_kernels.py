@@ -549,30 +549,42 @@ def test_dev_scalar_forms(given):
     assert (got is x) == (given == "0d_int64")
 
 
+_PROBE_LESS_JAX: dict = {}
+
+
+@pytest.mark.parametrize("window", ["none", "dead"])
 @pytest.mark.parametrize(
     "seed,n,cap,toks", [(40, 3000, SMALL_CAP, TOKS_LOW), (41, 4000, SMALL_CAP, TOKS_HIGH),
                         (42, BIG_CAP - 100, BIG_CAP, list(range(1, 30))), (43, 0, SMALL_CAP, TOKS_LOW)],
 )
-def test_probe_less_mode_is_the_dead_window_call(seed, n, cap, toks):
+def test_probe_less_mode_is_the_dead_window_call(seed, n, cap, toks, window):
     """The Pallas ``merge_compact_tracked(..., probes=None, window=None)``
     (the distributed trainer's and the selftest's mode) against the port's
-    window-mode call with every window slot dead, nothing probed: bitwise
-    on symbols, weights, n and both f32 bins (integer masses below 2^24),
-    and on ``samp`` while the stream fits one Pallas block. Across blocks
-    (the 1.5-block stream) the ``samp`` token on a weight tie is the one
-    documented difference: the port takes the smallest token of the whole
-    stream, the Pallas kernel that of the earliest block reaching the
-    weight, so there the weights must be equal and the Pallas token must
-    lie among the tied ones."""
+    probe-less call (no window: the 6-tuple) and its window-mode call with
+    every window slot dead (nothing probed): bitwise on symbols, weights, n
+    and both f32 bins (integer masses below 2^24), and on ``samp`` while the
+    stream fits one Pallas block. Across blocks (the 1.5-block stream) the
+    ``samp`` token on a weight tie is the one documented difference: the
+    port takes the smallest token of the whole stream, the Pallas kernel
+    that of the earliest block reaching the weight, so there the weights
+    must be equal and the Pallas token must lie among the tied ones."""
     rng = np.random.default_rng(seed)
     sym, w = _stream(rng, n, cap, toks)
     pair = pack_pair(toks[1], toks[2])
     new_id = 0x9000 if toks is TOKS_HIGH else 300
-    j = pk.merge_compact_tracked(jnp.asarray(sym), jnp.asarray(w), jnp.asarray(n), jnp.uint32(pair),
-                                 jnp.uint32(new_id), interpret=True)
+    if seed not in _PROBE_LESS_JAX:
+        _PROBE_LESS_JAX[seed] = pk.merge_compact_tracked(
+            jnp.asarray(sym), jnp.asarray(w), jnp.asarray(n), jnp.uint32(pair), jnp.uint32(new_id), interpret=True)
+    j = _PROBE_LESS_JAX[seed]
     assert len(j) == 6
-    dead = np.full(tk.W_SLOTS, 0xFFFFFFFF, np.uint32), np.full(tk.W_SLOTS, -1, np.int32)
-    p = _port_merge(sym, w, n, pair, new_id, *dead)
+    if window == "dead":
+        dead = np.full(tk.W_SLOTS, 0xFFFFFFFF, np.uint32), np.full(tk.W_SLOTS, -1, np.int32)
+        p = _port_merge(sym, w, n, pair, new_id, *dead)
+        assert len(p) == 9 and int(p[8]) == 0 and not p[6].any()
+    else:
+        p = [o.numpy() for o in tk.merge_compact_tracked(torch.from_numpy(sym.astype(np.int32)),
+                                                         torch.from_numpy(w), n, pair, new_id)]
+        assert len(p) == 6
     np.testing.assert_array_equal(p[0].astype(np.uint32), np.asarray(j[0]))
     np.testing.assert_array_equal(p[1], np.asarray(j[1]))
     n2 = int(p[2])
@@ -588,4 +600,9 @@ def test_probe_less_mode_is_the_dead_window_call(seed, n, cap, toks):
             assert samp_p[side] == samp_j[side] > 0
             tied = set(tks[mask & (wts == samp_p[side])].tolist())
             assert samp_p[side + 1] == min(tied) and int(samp_j[side + 1]) in tied
-    assert int(p[8]) == 0 and not p[6].any()
+
+
+def test_merge_window_is_both_or_neither():
+    sym = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="both cand and counts"):
+        tk.merge_compact_tracked(sym, sym, 0, 1, 300, cand=torch.zeros(tk.W_SLOTS, dtype=torch.int64))
