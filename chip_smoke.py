@@ -106,10 +106,36 @@ Phases, each printing one JSON line:
    gloo group on the one card, train phase 4's stream for 1024 merges: both
    merge lists must equal phase 4's; shard sizes, merges/s, and the
    transport of the collectives (gloo takes the CUDA tensors as they are;
-   nothing is staged by the port).
+   nothing is staged by the port);
+16. train_files: the 64 MB corpus (the certificate run's, of which the
+   16 MB corpus is the head) written to a file and trained by
+   `api.train_files` in 4 MB chunks to 256 + 8192 tokens on the native
+   ingest: the chunked stream must equal `make_stream` of the whole
+   pre-tokenized corpus, the merge list and counts must hash to the JAX
+   package's 64 MB record (docs/artifacts/certificate_validation.json);
+   ingest seconds, merges/s, the process's peak RSS; then the 16 MB head
+   through `train_files(backend="dist")` in a one-rank NCCL group must hash
+   to the 16 MB record;
+17. checkpoint: phase 4's stream trained to 256 + 512 with a checkpoint
+   after every 128-merge batch, the checkpoint replayed alone (seconds;
+   512 probe-less launches) and resumed to 256 + 1024: the merge list and
+   counts must equal phase 4's; phase 6's cut replayed on the card must
+   equal the replay on the CPU;
+18. cli: subprocesses of `python -m gpu_bpe_tpu_torch.cli` on the 1 MB cut
+   in a file: `train` with and without `--stream` (model.json byte-equal to
+   `api.train`'s on the card), `encode` then `decode`, `export-bin`,
+   `export-trie` and `vocab` equal to the API's, `export-hf` with both
+   `--pretok` values loaded back through `BPEModel.from_json`, `inspect`,
+   and `warmup --min-log2 11 --max-log2 13`;
+19. selftest: `run_kernel_selftest()` on the card, every case true; then
+   the explicit-probe mode of merge_compact_tracked on phase 3's real
+   first merge (the window's affected pairs as the caller's list), bitwise
+   against its plain version and the window-mode call, timed in turns
+   with it.
 
 The launch counts of the kernels' line are the sums over the main-path
-runs (phases 4, 8 and 11-15, every rank's in phase 15), each counted from 0.
+runs (phases 4, 8, 11-17 and 19, every rank's in phase 15), each counted
+from 0; the explicit-probe mode runs on the selftest's path only.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -158,7 +184,16 @@ KERNELS = {
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
 }
 PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
+EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
 KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
+KERNELS[EXPLICIT_PROBES] = KERNELS["merge_compact_tracked"]
+CORPUS64_BYTES = 64 << 20  # the certificate run's corpus (its first 16 MB are CORPUS_BYTES')
+CERT64 = "docs/artifacts/certificate_validation.json"
+FILES_MERGES = 8192  # the recorded 64 MB certificate run
+FILES_CHUNK = 4 << 20  # 16 chunks of the 64 MB file, each with a carry
+CKPT_BATCH = 128  # merges per batch of the checkpointed run, a checkpoint after each
+CKPT_MERGES = 512  # merges before the resume (phase 4 goes on to MERGES)
+CLI_TIMEOUT_S = 300
 TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
 DIST_RANKS = 2  # the ranks of the two-rank phase, both on the one card
 DIST_TIMEOUT_S = 300  # the two-rank phase's process group and processes
@@ -595,7 +630,7 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         raise AssertionError(f"count_pairs2 put {rows['count_pairs2']['device_op_names']} on the card "
                              "per call, want exactly one kernel")
     rows[PROBE_LESS] = probe_less_phase(torch, kernels, real_stream, real[4], real[6], real[7], dev)
-    return rows
+    return rows, real
 
 
 def probe_less_phase(torch, kernels, padded, pair, cand, counts, dev) -> dict:
@@ -1354,6 +1389,244 @@ def dist_worker(addr: str, rank: int, tmp: str) -> int:
     return 0
 
 
+# ───────────────────── streamed training, checkpoint, CLI, selftest ─────────────────────
+
+
+def files_phase(torch, corpus64: bytes, launches: dict) -> None:
+    """Phase 16: ``api.train_files`` on the 64 MB corpus in 4 MB chunks (the
+    certificate run), then on its first 16 MB through ``backend="dist"`` in
+    a one-rank NCCL group. Adds both runs' kernel launches to ``launches``."""
+    import resource
+
+    from gpu_bpe_tpu_torch import api
+    from gpu_bpe_tpu_torch.ops import kernels, native
+    from gpu_bpe_tpu_torch.ops.ingest import make_stream, make_stream_chunked, stream_paths
+    from gpu_bpe_tpu_torch.pretok import PreTokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        big, part = Path(tmp, "corpus64.txt"), Path(tmp, "corpus16.txt")
+        big.write_bytes(corpus64)
+        part.write_bytes(corpus64[:CORPUS_BYTES])
+        nat = native.native_available()
+        t0 = time.perf_counter()
+        chunked = make_stream_chunked(stream_paths([str(big)], FILES_CHUNK))
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mono = make_stream(*PreTokenizer().pre_tokenize_bytes(corpus64))
+        mono_s = time.perf_counter() - t0
+        same_stream = (chunked.n == mono.n and chunked.total_bytes == mono.total_bytes
+                       and np.array_equal(chunked.symbols, mono.symbols) and np.array_equal(chunked.weights, mono.weights))
+        del mono
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        _, res = api.train_files([str(big)], api.TrainConfig(vocab_size=256 + FILES_MERGES, show_progress=False),
+                                 chunk_bytes=FILES_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        got, record = sha_pair(res), json.loads((REPO / CERT64).read_text())["normal"]
+        row = {"phase": "train_files", "bytes": len(corpus64), "chunk_bytes": FILES_CHUNK,
+               "chunks": -(-len(corpus64) // FILES_CHUNK), "native_ingest": nat, "stream_n": chunked.n,
+               "ingest_s": ingest_s, "monolithic_ingest_s": mono_s, "chunked_eq_monolithic": same_stream,
+               "wall_s": wall, "training_s": res.training_time_s,
+               "merges_per_s": len(res.merges) / res.training_time_s, "recounts": res.recounts,
+               "peak_rss_bytes_process": rss, "launches": run, **got, "record": CERT64,
+               "equal_to_record": got == {k: record[k] for k in got}}
+        emit(row)
+        if not (nat and same_stream and row["equal_to_record"]) or min(run.values()) <= 0:
+            raise AssertionError(f"train_files: native {nat}, chunked == monolithic {same_stream}, hashes {got} "
+                                 f"(record {record}), launches {run}")
+        for k, v in run.items():
+            launches[k] += v
+
+        kernels.LAUNCHES.clear()
+        _, dres = api.train_files([str(part)], api.TrainConfig(vocab_size=256 + API_MERGES, backend="dist",
+                                                                show_progress=False), chunk_bytes=FILES_CHUNK)
+        torch.cuda.synchronize()
+    dist_launches = kernels.LAUNCHES[PROBE_LESS]
+    got, record = sha_pair(dres), json.loads((REPO / CERT16).read_text())["normal"]
+    emit({"phase": "train_files_dist", "ranks": 1, "backend": "nccl", "bytes": CORPUS_BYTES,
+          "merges": len(dres.merges), "training_s": dres.training_time_s,
+          "merges_per_s": len(dres.merges) / dres.training_time_s, "launches": dist_launches, **got,
+          "record": CERT16, "equal_to_record": got == {k: record[k] for k in got}})
+    if got != {k: record[k] for k in got} or dist_launches <= 0:
+        raise AssertionError(f"train_files(backend='dist') hashes {got}, the record {record}; "
+                             f"launches {dist_launches}")
+    launches[PROBE_LESS] += dist_launches
+
+
+def checkpoint_phase(torch, stream, main_res, s_stream, s_merges, launches: dict, dev="cuda") -> None:
+    """Phase 17: phase 4's stream trained to CKPT_MERGES merges with a
+    checkpoint after every 128-merge batch, the checkpoint replayed alone
+    (timed, probe-less launches counted), then resumed to phase 4's
+    MERGES merges; and phase 6's 1 MB cut replayed on ``dev`` and on the
+    CPU."""
+    from gpu_bpe_tpu_torch import Trainer
+    from gpu_bpe_tpu_torch.ops import checkpoint as ck
+    from gpu_bpe_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ckpt.json"
+        kernels.LAUNCHES.clear()
+        first = Trainer(batch_merges=CKPT_BATCH, device=dev).train_stream(
+            stream, 256 + CKPT_MERGES, checkpoint_path=path, checkpoint_every=1)
+        torch.cuda.synchronize()
+        run = Counter({k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS})
+        written = ck.TrainingCheckpoint.load(path)
+        kernels.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state, _ = ck.resume_stream(stream, written, device=dev)
+        n_replayed = int(state.n)  # the replay's one host read
+        replay_s = time.perf_counter() - t0
+        replay_launches = kernels.LAUNCHES[PROBE_LESS]
+        del state
+        kernels.LAUNCHES.clear()
+        resumed = Trainer(batch_merges=CKPT_BATCH, device=dev).train_stream(
+            stream, 256 + MERGES, checkpoint_path=path, checkpoint_every=1)
+        torch.cuda.synchronize()
+        resume_launches = {k: kernels.LAUNCHES[k] for k in (PROBE_LESS, *TRAIN_KERNELS)}
+        final = ck.TrainingCheckpoint.load(path)
+    run.update({k: resume_launches[k] for k in TRAIN_KERNELS})
+    g = ck.replay_merges(s_stream, s_merges, device=dev)
+    c = ck.replay_merges(s_stream, s_merges, device="cpu")
+    cut_equal = (int(g.n) == int(c.n) and torch.equal(g.symbols.cpu(), c.symbols)
+                 and torch.equal(g.weights.cpu(), c.weights))
+    checks = {
+        "first_eq_main_path": first.merges == main_res.merges[:CKPT_MERGES],
+        "checkpoint_eq_first": written.merges == first.merges and written.merge_counts == first.merge_counts,
+        "resumed_eq_main_path": resumed.merges == main_res.merges and resumed.merge_counts == main_res.merge_counts,
+        "final_checkpoint_eq_resumed": final.merges == resumed.merges,
+        "replay_launches_eq_merges": replay_launches == resume_launches[PROBE_LESS] == CKPT_MERGES,
+        "cut_replay_card_eq_cpu": cut_equal,
+    }
+    emit({"phase": "checkpoint", "batch_merges": CKPT_BATCH, "checkpoint_merges": len(written.merges),
+          "resumed_merges": len(resumed.merges), "replay_s": replay_s, "replay_n": n_replayed,
+          "replay_launches": replay_launches, "resume_launches": resume_launches,
+          "resume_training_s": resumed.training_time_s, "cut_merges": len(s_merges), **checks})
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint checks failed: {checks}")
+    for k, v in run.items():
+        launches[k] += v
+    launches[PROBE_LESS] += replay_launches + resume_launches[PROBE_LESS]
+
+
+def cli_phase(torch, small: bytes) -> None:
+    """Phase 18: subprocesses of ``python -m gpu_bpe_tpu_torch.cli`` on the
+    1 MB cut written to a file, those that do not depend on each other
+    started together; their artifacts against ``api``'s on the card."""
+    from gpu_bpe_tpu_torch import api
+    from gpu_bpe_tpu_torch.core import BPEModel
+
+    def run(*cmds):
+        procs = [subprocess.Popen([sys.executable, "-m", "gpu_bpe_tpu_torch.cli", *map(str, c)], cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+        try:
+            outs = [p.communicate(timeout=CLI_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for c, p, (_, err) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"cli {c[0]} exited with {p.returncode}:\n{err[-4000:]}")
+        return [out for out, _ in outs]
+
+    tok, _ = api.train(small, api.TrainConfig(vocab_size=256 + SMALL_MERGES, show_progress=False))
+    text = small[:300].decode("utf-8", errors="ignore")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: Path(tmp, k) for k in ("cut.txt", "model.json", "stream.json", "tokens.bin", "model.trie",
+                                       "none.json", "byte-level.json")}
+        f["cut.txt"].write_bytes(small)
+        vocab_arg = ["--vocab-size", 256 + SMALL_MERGES]
+        run(["train", f["cut.txt"], "-o", f["model.json"], *vocab_arg],
+            ["train", f["cut.txt"], "-o", f["stream.json"], *vocab_arg, "--stream"])
+        m = f["model.json"]
+        enc, _, _, _, _, vocab_text, _ = run(
+            ["encode", m, text], ["export-bin", m, f["cut.txt"], "-o", f["tokens.bin"]],
+            ["export-trie", m, "-o", f["model.trie"]], ["export-hf", m, "-o", f["none.json"]],
+            ["export-hf", m, "-o", f["byte-level.json"], "--pretok", "byte-level"], ["vocab", m],
+            ["warmup", "--min-log2", 11, "--max-log2", 13])
+        dec, inspect = run(["decode", m, *enc.split()], ["inspect", f["tokens.bin"]])
+        model_bytes = tok.model.to_json().encode()
+        hf = {p: BPEModel.from_json(f[f"{p}.json"].read_text(encoding="utf-8")) for p in ("none", "byte-level")}
+        checks = {
+            "train_eq_api": f["model.json"].read_bytes() == model_bytes,
+            "train_stream_eq_api": f["stream.json"].read_bytes() == model_bytes,
+            "encode_decode_roundtrip": dec == text + "\n" and len(enc.split()) > 0,
+            "export_bin_eq_api": f["tokens.bin"].read_bytes() == api.export_bin(tok, small),
+            "export_trie_eq_api": f["model.trie"].read_bytes() == api.export_trie(tok),
+            "export_hf_loads_back": all(h.vocab == tok.model.vocab and h.merges == tok.model.merges
+                                        for h in hf.values()),
+            "vocab_eq_api": vocab_text == tok.export_vocab_text(),
+            "inspect_runs": inspect.startswith("DXFT v2: vocabSize="),
+        }
+    emit({"phase": "cli", "bytes": len(small), "merges": SMALL_MERGES, "subprocesses": 11,
+          "seconds": time.perf_counter() - t0, **checks})
+    if not all(checks.values()):
+        raise AssertionError(f"cli checks failed: {checks}")
+
+
+def selftest_phase(torch, launches: dict) -> None:
+    """Phase 19: ``run_kernel_selftest()`` on the card; adds its launches."""
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops.selftest import run_kernel_selftest
+
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    results = run_kernel_selftest()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    run = {k: kernels.LAUNCHES[k] for k in KERNELS}
+    emit({"phase": "selftest", "seconds": secs, "cases": results, "launches": run})
+    if not all(results.values()) or run[EXPLICIT_PROBES] <= 0:
+        raise AssertionError(f"kernel selftest failed: {results}, launches {run}")
+    for k, v in run.items():
+        launches[k] += v
+
+
+def explicit_probe_row(torch, kernels, real, dev) -> dict:
+    """Phase 19, the explicit-probe mode on phase 3's real first merge: the
+    window's affected pairs as the caller's list, bitwise against its plain
+    version and against the window-mode call; its times in turns with the
+    window-mode call."""
+    _, sym, w, n, pair, new_id, cand, counts = real
+    args = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev), torch.tensor(n, device=dev),
+            torch.tensor(pair, device=dev), torch.tensor(new_id, device=dev))
+    window = (torch.from_numpy(cand).to(dev), torch.from_numpy(counts).to(dev))
+    a, b = pair >> 16, pair & 0xFFFF
+    aff = [int(c) for c, k in zip(cand, counts) if k >= 0 and ((c & 0xFFFF) == a or (c >> 16) == b) and c != pair]
+    words = np.ones(kernels.N_PROBES, np.int64)
+    count = min(len(aff), kernels.N_PROBES)
+    words[:count] = aff[:count]
+    probes = (torch.from_numpy(words).to(dev), torch.tensor(count, device=dev))
+    got = kernels.merge_compact_tracked(*args, probes=probes)
+    torch.cuda.synchronize()  # a fault in the kernel surfaces here
+    err = max_abs_diff(got, kernels.merge_compact_tracked_plain(*args, probes=probes))
+    win = kernels.merge_compact_tracked(*args, *window)
+    eq_window = len(aff) <= kernels.N_PROBES and max_abs_diff(got, win[:7]) == 0.0
+    kern = lambda: kernels.merge_compact_tracked(*args, probes=probes)  # noqa: E731
+    ms, window_ms = time_in_turns(torch, [kern, lambda: kernels.merge_compact_tracked(*args, *window)], 20)
+    plain_ms = time_ms(torch, lambda: kernels.merge_compact_tracked_plain(*args, probes=probes), 3)
+    prof = dict(host_ms=host_ms(torch, kern), **device_profile(torch, kern))
+    cap = sym.shape[0]
+    # stream in, stream and tail out, the list and count, bins, samp, pcnt, n'
+    nbytes = 8 * n + 8 * cap + 8 * kernels.N_PROBES + 8 + 2 * 256 * 4 + 4 * 8 + 8 * kernels.N_PROBES + 8
+    row = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+               window_mode_ms=window_ms, **prof)
+    emit({"phase": "kernel", "name": EXPLICIT_PROBES, "max_abs_err": err, "tolerance": 0, "ms": ms,
+          "window_mode_ms": window_ms, "plain_ms": plain_ms, **prof, "bytes": nbytes, "bound_ms": row["bound_ms"],
+          "bound_by": "bytes", "shape": {"capacity": cap, "n": n, "probes": count, "affected": len(aff)},
+          "equal_to_window_mode": eq_window})
+    if err != 0.0 or not eq_window:
+        raise AssertionError(f"the explicit-probe merge disagrees with its plain version ({err}) or with the "
+                             f"window-mode call ({eq_window})")
+    if round(prof["device_ops"]) > 2:
+        raise AssertionError(f"the explicit-probe merge put {prof['device_op_names']} on the card per call, "
+                             "want at most two kernels")
+    return row
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -1407,13 +1680,14 @@ def main() -> int:
                              f"ops/kernels.py says {kernels.ARENA_WORDS}")
 
     t0 = time.perf_counter()
-    corpus = synth_corpus(CORPUS_BYTES, seed=0)
+    corpus64 = synth_corpus(CORPUS64_BYTES, seed=0)
+    corpus = corpus64[:CORPUS_BYTES]  # = synth_corpus(CORPUS_BYTES): the generator only appends
     stream = make_stream(corpus, byte_word_starts(corpus))
     padded = pad_stream(stream)
     emit({"phase": "corpus", "bytes": len(corpus), "stream_n": stream.n,
           "capacity": int(padded.symbols.shape[0]), "seconds": time.perf_counter() - t0})
 
-    rows = kernel_phase(torch, kernels, ts, padded, torch.device("cuda"))
+    rows, real = kernel_phase(torch, kernels, ts, padded, torch.device("cuda"))
 
     # ── phase 4: the main path, launch counts from this run only ──
     kernels.LAUNCHES.clear()
@@ -1453,6 +1727,7 @@ def main() -> int:
           "equal": same, "cuda_recounts": on_gpu.recounts, "cpu_recounts": on_cpu.recounts})
     if not same or len(on_gpu.merges) != SMALL_MERGES:
         raise AssertionError("cuda and cpu merge lists differ")
+    cut_merges = on_gpu.merges  # replayed in phase 17
 
     # ── phase 7: the tokenize vocabs ──
     t0 = time.perf_counter()
@@ -1519,6 +1794,14 @@ def main() -> int:
     api_phases(torch, corpus, vocabs, launches, rows)
     launches[PROBE_LESS] = 0
     dist_phases(torch, corpus, stream, res.merges, launches)
+
+    files_phase(torch, corpus64, launches)
+    del corpus64
+    checkpoint_phase(torch, stream, res, s_stream, cut_merges, launches)
+    cli_phase(torch, corpus[:SMALL_BYTES])
+    launches[EXPLICIT_PROBES] = 0
+    selftest_phase(torch, launches)
+    rows[EXPLICIT_PROBES] = explicit_probe_row(torch, kernels, real, torch.device("cuda"))
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

@@ -8,14 +8,16 @@ of ``gpu_bpe_tpu/api.py``), with backend selection:
   process group set up by ``parallel.init_multihost``, or over a group of
   this process alone on ``TrainConfig.device`` when there is none.
 
-Streamed training from files (``train_files``) waits for the port of the
-native and streamed ingest (ROADMAP.md queue 1, item 3).
+``train_files`` trains from files in streamed mode: the corpus is read,
+pre-tokenized and deduplicated chunk by chunk (``ops.ingest.stream_paths``,
+``make_stream_chunked``), so host memory stays bounded by the unique-word
+mass plus one chunk, then trained on ``TrainConfig.device`` by ``backend``
+"cuda" or "dist". Progress goes to the package logger (``utils.get_logger``).
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 from dataclasses import dataclass
 
@@ -24,8 +26,9 @@ import numpy as np
 from .core.trainer_ref import ProgressFn, ReferenceTrainer, TrainingResult, bytes_to_symbols, tag_word_boundaries
 from .models.bpe import BPETokenizer
 from .pretok import PreTokenizer, tag_word_boundaries_bytes
+from .utils import get_logger, log_progress
 
-logger = logging.getLogger(__name__)
+logger = get_logger()
 
 
 @dataclass
@@ -83,14 +86,6 @@ def build_corpus(files: list[bytes], shuffle: bool = False, seed: int = 0) -> by
     return corpus
 
 
-def log_progress(progress: dict) -> None:
-    """Log one progress event of the reference's schema."""
-    logger.info(
-        "[%d/%d] '%s' count:%d symbols:%d (%.1f merges/s)", progress["mergeIndex"], progress["totalMerges"],
-        progress["mergeString"], progress["bestCount"], progress["symbolCount"], progress["mergesPerSecond"],
-    )
-
-
 def train(
     corpus: bytes | str | list[bytes],
     config: TrainConfig | None = None,
@@ -98,8 +93,7 @@ def train(
 ) -> tuple[BPETokenizer, TrainingResult]:
     """Train a BPE tokenizer. Returns (tokenizer, full training result)."""
     config = config or TrainConfig()
-    if config.backend not in ("cuda", "cpu", "dist"):
-        raise ValueError(f"backend must be 'cuda', 'cpu' or 'dist', got {config.backend!r}")
+    _check_backend(config)
     if isinstance(corpus, list):
         corpus = build_corpus(corpus, config.shuffle, config.seed)
     if isinstance(corpus, str):
@@ -116,6 +110,61 @@ def train(
         result = _train_backend(config, data, starts, on_progress)
     tokenizer = BPETokenizer.from_training_result(
         result, backend="cpu" if config.backend == "cpu" else "cuda", device=config.device)
+    return tokenizer, result
+
+
+def _check_backend(config: TrainConfig) -> None:
+    if config.backend not in ("cuda", "cpu", "dist"):
+        raise ValueError(f"backend must be 'cuda', 'cpu' or 'dist', got {config.backend!r}")
+
+
+def train_files(
+    paths: list[str],
+    config: TrainConfig | None = None,
+    on_progress: ProgressFn | None = None,
+    chunk_bytes: int = 64 << 20,
+) -> tuple[BPETokenizer, TrainingResult]:
+    """Streamed training from files (directories expand as in
+    ``collect_files``): host memory stays bounded by the unique-word mass
+    plus one chunk of ``chunk_bytes``, so corpora of many GB ingest without
+    the whole corpus in memory. The stream, hence the merge list, is the one
+    ``train`` makes of the same files.
+
+    Streamed mode needs the whole pipeline of word boundaries and dedup on
+    the device backends; paragraph shuffle (which needs the whole corpus),
+    byte-level and no-dedup streams, and ``backend="cpu"`` go through
+    ``train``."""
+    config = config or TrainConfig()
+    _check_backend(config)
+    if config.shuffle or not config.pre_tokenize or not config.dedup or config.backend == "cpu":
+        files = []
+        for p in collect_files(paths):
+            with open(p, "rb") as f:
+                files.append(f.read())
+        return train(files, config, on_progress)
+
+    from .ops.ingest import make_stream_chunked, stream_paths
+    from .ops.trainer import resolve_device
+
+    device = resolve_device(config.device)
+    stream = make_stream_chunked(stream_paths(collect_files(paths), chunk_bytes))
+    logger.info("streamed ingest: %d unique-word symbols from %d corpus bytes (%.1fx dedup)",
+                stream.n, stream.total_bytes, stream.dedup_ratio)
+    if on_progress is None and config.show_progress:
+        on_progress = log_progress
+    with _profile_ctx(config):
+        if config.backend == "dist":
+            from .parallel import DistributedTrainer, one_rank_group
+
+            with one_rank_group(device) as group:
+                trainer = DistributedTrainer(group, batch_merges=config.batch_merges)
+                result = trainer.train_stream(stream, config.vocab_size, on_progress)
+        else:
+            from .ops import Trainer
+
+            trainer = Trainer(batch_merges=config.batch_merges, device=device)
+            result = trainer.train_stream(stream, config.vocab_size, on_progress)
+    tokenizer = BPETokenizer.from_training_result(result, backend="cuda", device=config.device)
     return tokenizer, result
 
 

@@ -6,8 +6,8 @@ unchanged):
 * tokenized corpus ``.bin`` v2: u32 header [magic 'DXFT', vocabSize,
   tokenCount, vocabBytesLen] + u32 tokens + the embedded model JSON bytes.
 
-Hugging Face ``tokenizer.json`` import waits for the port of
-``core/hf_io.py`` (ROADMAP.md queue 1, item 5).
+``BPEModel.from_json`` also takes a Hugging Face byte-level BPE
+``tokenizer.json`` (detected by its ``model`` object; ``core/hf_io.py``).
 """
 
 from __future__ import annotations
@@ -69,9 +69,10 @@ class BPEModel:
 
     @classmethod
     def from_json_obj(cls, obj: dict) -> "BPEModel":
-        if isinstance(obj.get("model"), dict) and "type" in obj["model"]:
-            raise NotImplementedError(
-                "Hugging Face tokenizer.json import is not ported yet (ROADMAP.md queue 1, item 5: hf_io)")
+        from .hf_io import looks_like_hf_json, model_from_hf_obj
+
+        if looks_like_hf_json(obj):  # a Hugging Face tokenizer.json
+            return model_from_hf_obj(obj)[0]
         if "vocab" not in obj or "merges" not in obj:
             raise ValueError("Invalid vocabulary file: missing vocab or merges")
         return cls(vocab=[bytes(v) for v in obj["vocab"]], merges=[tuple(m) for m in obj["merges"]])

@@ -8,7 +8,9 @@
 * ``decode(tokens)``: byte concatenation with U+FFFD for unknown ids;
 * ``compile_trie()``: the v3 binary trie;
 * ``export_bin(data)``: tokenize + the DXFT .bin container;
-* ``save`` / ``load``: the merge-list JSON.
+* ``export_hf_json()``: a Hugging Face ``tokenizer.json``;
+* ``save`` / ``load``: the merge-list JSON (``load`` also reads a Hugging
+  Face ``tokenizer.json``).
 """
 
 from __future__ import annotations
@@ -88,8 +90,10 @@ class BPETokenizer:
         return self.model.to_vocab().export_text()
 
     def export_hf_json(self, pretok: str = "none") -> str:
-        raise NotImplementedError(
-            "Hugging Face tokenizer.json export is not ported yet (ROADMAP.md queue 1, item 5: hf_io)")
+        """Hugging Face ``tokenizer.json`` (byte-level BPE; ``core/hf_io.py``)."""
+        from ..core.hf_io import model_to_hf_json
+
+        return model_to_hf_json(self.model, pretok=pretok)
 
     def save(self, path: str) -> None:
         self.model.save(path)

@@ -41,7 +41,7 @@ _B = ctypes.c_char_p  # a host block of packed addresses (bytes), read by the en
 # argument types of each library's entry points (see the .cu files)
 _SIGNATURES = {
     "merge_compact_tracked": {
-        "merge_compact_tracked": [_P, _P, _I] + [_P] * 9,
+        "merge_compact_tracked": [_P, _P, _I] + [_P] * 11,
         "mc_scratch_words": [_I],
         "mc_arena_words": [],
     },

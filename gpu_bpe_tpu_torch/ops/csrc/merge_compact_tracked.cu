@@ -3,14 +3,18 @@
 //
 // Replaces the TPU kernel `_merge_compact_kernel` of
 // gpu_bpe_tpu/ops/pallas_kernels.py:136 (public entry
-// `merge_compact_tracked`, pallas_kernels.py:1289, in window mode and in
-// probe-less mode; `merge_compact`, pallas_kernels.py:625, is the latter).
+// `merge_compact_tracked`, pallas_kernels.py:1289, in all three modes;
+// `merge_compact`, pallas_kernels.py:625, is the probe-less one).
 //
 // Modes: with a candidate window (cand, counts) the block that draws tile
 // 0 derives the probe list from it and the tracking pass counts each probe.
-// With null window pointers (the probe-less mode of the data-parallel
-// trainer, parallel/dist_train.py) that set-up is skipped: tile 0 only
-// records that nothing is probed, and no window is read.
+// With an explicit probe list (probe_words, probe_count: the Pallas
+// `probes=(words, count)`, pallas_kernels.py:195-200) that block copies
+// the caller's list and count into the probe slots instead, and the
+// tracking pass looks every pair up in the list (the caller's pairs need
+// not be in the affected set). With null window and probe pointers (the
+// probe-less mode of the data-parallel trainer, parallel/dist_train.py)
+// the set-up is skipped: tile 0 only records that nothing is probed.
 //
 // samp: per side, the heaviest created pair's weight and, among the pairs
 // of that weight, the smallest token over the whole stream. That is the
@@ -49,7 +53,8 @@
 //      zeroes output n - 1 - r (so [n', n) needs no n'), and each tile
 //      zeroes its own slots at or past n. In window mode the block that
 //      draws tile 0 also computes the affected window slots, the probe
-//      list, n_aff and the effective probe count (0 with no window).
+//      list, n_aff and the effective probe count (0 with no window; the
+//      caller's list and count, clamped to [0, N_PROBES], in explicit mode).
 //   B. track: one pass over adjacent pairs of the compacted output (in L2
 //      right after A; all of a thread's 16-byte loads issued first),
 //      folding the left/right created-pair histograms (integer atomics in
@@ -141,7 +146,8 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long x) {
 __global__ void __launch_bounds__(THREADS, 3)
 merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long long cap, const long long* n_p,
             const long long* pair_p, const long long* new_id_p, const long long* cand, const long long* counts,
-            int* __restrict__ out_sym, int* __restrict__ out_w, long long* arena, long long* scratch) {
+            const long long* probe_words, const long long* probe_count, int* __restrict__ out_sym,
+            int* __restrict__ out_w, long long* arena, long long* scratch) {
     __shared__ __align__(16) uint32_t s_sym[HALO + TILE_N + HALO];  // the tile and its halo; then the staged run
     __shared__ uint16_t stage_pos[TILE_N];
     __shared__ int load_off[LOADS * WARPS];
@@ -274,7 +280,14 @@ merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long lo
         out_w[q] = 0;
     }
 
-    if (tile == 0 && cand == nullptr) {  // probe-less mode: nothing to probe
+    if (tile == 0 && probe_words != nullptr) {  // explicit-probe mode: the caller's list
+        const long long c = *probe_count;
+        if (t < N_PROBES) arena[AR_PROBES + t] = probe_words[t];
+        if (t == 0) {
+            scratch[SC_NPE] = c < 0 ? 0 : (c > N_PROBES ? N_PROBES : c);
+            arena[AR_NAFF] = c;
+        }
+    } else if (tile == 0 && cand == nullptr) {  // probe-less mode: nothing to probe
         if (t == 0) {
             scratch[SC_NPE] = 0;
             arena[AR_NAFF] = 0;
@@ -299,7 +312,7 @@ merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long lo
 
 __global__ void __launch_bounds__(THREADS)
 track(const int* __restrict__ out_sym, const int* __restrict__ out_w, long long cap, const long long* pair_p,
-      const long long* new_id_p, long long* arena, long long* scratch) {
+      const long long* new_id_p, bool any_pair, long long* arena, long long* scratch) {
     __shared__ Split s_bins[2 * NBINS];
     __shared__ Split s_pcnt[N_PROBES];
     __shared__ uint32_t s_key[PTAB];  // probe pair
@@ -382,9 +395,10 @@ track(const int* __restrict__ out_sym, const int* __restrict__ out_w, long long 
                 samp_r = max(samp_r, sample_word(wu, vt));
                 any = true;
             }
-            // every probe ends in a or starts with b (the affected set), so
-            // other pairs skip the probe list
-            if (npe && (vt == a || ut == b)) {
+            // a window's probes end in a or start with b (the affected
+            // set), so other pairs skip the list; an explicit list may hold
+            // any pair (any_pair)
+            if (npe && (any_pair || vt == a || ut == b)) {
                 const uint32_t pr = (ut << 16) | vt;
                 for (int i = ptab_slot(pr); s_idx[i] >= 0; i = (i + 1) & (PTAB - 1)) {
                     if (s_key[i] == pr) {
@@ -457,18 +471,24 @@ extern "C" long long mc_arena_words() { return AR_WORDS; }
 
 // out: [2, cap] int32 (merged symbols, then weights); arena: mc_arena_words()
 // int64 words (n_new, bins as 2 x NBINS f32, samp[4], pcnt, probes, n_aff).
-// cand and counts are the W_SLOTS-slot window, or both null for the
-// probe-less mode (then pcnt is zero and probes is left unwritten).
+// cand and counts are the W_SLOTS-slot window; probe_words (N_PROBES pairs)
+// and probe_count an explicit probe list; all four null for the probe-less
+// mode (then pcnt is zero and probes is left unwritten). A window and a
+// probe list are exclusive.
 extern "C" int merge_compact_tracked(const int* sym, const int* w, long long cap, const long long* n,
                                      const long long* pair, const long long* new_id,
-                                     const long long* cand, const long long* counts, int* out,
+                                     const long long* cand, const long long* counts,
+                                     const long long* probe_words, const long long* probe_count, int* out,
                                      long long* arena, long long* scratch, void* stream) {
+    if (cand != nullptr && probe_words != nullptr) return (int)cudaErrorInvalidValue;
     if (cap < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long ntiles = (cap + TILE_N - 1) / TILE_N;
     const long long ntrack = cap > 1 ? (cap - 1 + TRACK_N - 1) / TRACK_N : 1;
     merge_tiles<<<(unsigned)ntiles, THREADS, 0, s>>>(reinterpret_cast<const uint32_t*>(sym), w, cap, n, pair,
-                                                       new_id, cand, counts, out, out + cap, arena, scratch);
-    track<<<(unsigned)ntrack, THREADS, 0, s>>>(out, out + cap, cap, pair, new_id, arena, scratch);
+                                                       new_id, cand, counts, probe_words, probe_count, out,
+                                                       out + cap, arena, scratch);
+    track<<<(unsigned)ntrack, THREADS, 0, s>>>(out, out + cap, cap, pair, new_id, probe_words != nullptr, arena,
+                                               scratch);
     return (int)cudaGetLastError();
 }

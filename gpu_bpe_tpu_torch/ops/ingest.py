@@ -7,8 +7,12 @@ instance identically, global pair counts equal
 ``Σ_unique_words freq(w) · in-word counts``. Deduplication makes per-merge
 cost proportional to unique-word mass instead of corpus size.
 
-The port's copy of ``gpu_bpe_tpu.ops.ingest``: the numpy dedup path, whose
-output is bitwise equal to the native C++ loader of the reference package.
+The port's copy of ``gpu_bpe_tpu.ops.ingest``. The dedup runs in the native
+C++ library (``ops/native.py``) where it builds, else in numpy
+(``numpy_dedup``, ``StreamAccumulator``'s per-length sets); both give the
+same stream bit for bit. ``stream_paths`` and ``make_stream_chunked`` ingest
+files chunk by chunk with host memory bounded by the unique-word mass plus
+one chunk (``api.train_files``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..constants import TOKEN_MASK, WORD_START_BIT
+from . import native
 
 
 @dataclass
@@ -87,7 +92,6 @@ def _unique_rows(mat: np.ndarray, weights: np.ndarray | None = None):
     return uniq, counts
 
 
-
 def make_stream(
     data: bytes | np.ndarray,
     word_starts: np.ndarray | None,
@@ -124,6 +128,18 @@ def make_stream(
     if n_total:
         starts[0] = True  # position 0 always starts a word (rule 1)
 
+    nat = native.native_dedup(bytes_arr, starts, WORD_START_BIT)
+    if nat is not None:
+        syms, wts, total_unique = nat
+        return SymbolStream(symbols=syms, weights=wts, n=total_unique, total_bytes=n_total)
+    return numpy_dedup(bytes_arr, starts)
+
+
+def numpy_dedup(bytes_arr: np.ndarray, starts: np.ndarray) -> SymbolStream:
+    """The numpy dedup of ``make_stream``: ``bytes_arr`` u8 with the bool
+    word-start mask ``starts`` (``starts[0]`` set). Bitwise equal to the
+    native path."""
+    n_total = len(bytes_arr)
     # Vectorized dedup: bucket words by length, dedupe each bucket with
     # np.unique over fixed-width rows (C-speed; the previous Python dict
     # loop dominated ingestion on multi-GB corpora). Deterministic output
@@ -168,6 +184,155 @@ def make_stream(
     symbols = np.concatenate(out_syms)
     weights = np.concatenate(out_wts)
     return SymbolStream(symbols=symbols, weights=weights, n=total_unique, total_bytes=n_total)
+
+
+class StreamAccumulator:
+    """Incremental unique-word accumulator for streamed ingestion.
+
+    Host memory is bounded by the unique-word mass (plus one chunk), not
+    the corpus size. Words arrive chunk by chunk as (pre-tokenized bytes,
+    word-start mask); each chunk's first position starts a word. With the
+    native library the C++ hash table and arena persist across chunks;
+    without it each chunk is deduplicated per length as in ``make_stream``
+    and merged into running per-length unique sets with summed counts.
+    ``finish()`` gives the stream ``make_stream`` would give on the
+    concatenated input (same (length asc, bytes asc) order)."""
+
+    def __init__(self):
+        self._rows: dict[int, np.ndarray] = {}  # ln -> [k, ln] uint8
+        self._counts: dict[int, np.ndarray] = {}  # ln -> [k] int64
+        self._total = 0
+        self._native = native.NativeAccumulator() if native.native_available() else None
+
+    def add_chunk(self, data: bytes | np.ndarray, word_starts: np.ndarray) -> None:
+        if isinstance(data, (bytes, bytearray)):
+            bytes_arr = np.frombuffer(bytes(data), dtype=np.uint8)
+        else:
+            bytes_arr = np.asarray(data, dtype=np.uint8)
+        n = len(bytes_arr)
+        if n == 0:
+            return
+        self._total += n
+        if self._native is not None:
+            # (mask != 0), not astype(uint8): an int mask value that is a
+            # multiple of 256 must stay a word start, as on the numpy path
+            starts = (np.asarray(word_starts) != 0).astype(np.uint8)
+            starts[0] = 1
+            self._native.add_chunk(bytes_arr, starts)
+            return
+        starts = word_starts.astype(bool).copy()
+        starts[0] = True
+        boundaries = np.flatnonzero(starts)
+        ends = np.append(boundaries[1:], n)
+        lengths = ends - boundaries
+        for ln in np.unique(lengths):
+            ln = int(ln)
+            sel = boundaries[lengths == ln]
+            mat = bytes_arr[sel[:, None] + np.arange(ln)[None, :]]
+            uniq, cnt = _unique_rows(mat)
+            if ln not in self._rows:
+                self._rows[ln], self._counts[ln] = uniq, cnt
+            else:
+                merged = np.concatenate([self._rows[ln], uniq])
+                mcnt = np.concatenate([self._counts[ln], cnt])
+                self._rows[ln], self._counts[ln] = _unique_rows(merged, weights=mcnt)
+
+    def finish(self) -> SymbolStream:
+        if self._native is not None:
+            syms, wts, total_unique = self._native.finish(WORD_START_BIT)
+            return SymbolStream(symbols=syms, weights=wts, n=total_unique, total_bytes=self._total)
+        out_syms, out_wts = [], []
+        total_unique = 0
+        for ln in sorted(self._rows):
+            uniq, cnt = self._rows[ln], self._counts[ln]
+            assert cnt.max(initial=0) < 2**31, "word frequency overflows int32"
+            sym = uniq.astype(np.uint32)
+            sym[:, 0] |= np.uint32(WORD_START_BIT)
+            out_syms.append(sym.reshape(-1))
+            out_wts.append(np.repeat(cnt.astype(np.int32), ln))
+            total_unique += len(uniq) * ln
+        if not out_syms:
+            return SymbolStream(symbols=np.zeros(0, np.uint32), weights=np.zeros(0, np.int32), n=0,
+                                total_bytes=self._total)
+        return SymbolStream(symbols=np.concatenate(out_syms), weights=np.concatenate(out_wts), n=total_unique,
+                            total_bytes=self._total)
+
+
+def _utf8_safe_split(buf: bytes, limit: int) -> int:
+    """Largest split point <= limit that does not cut a UTF-8 sequence."""
+    if limit >= len(buf):
+        return len(buf)
+    cut = limit
+    while cut > 0 and (buf[cut] & 0xC0) == 0x80:
+        cut -= 1
+    return cut
+
+
+def stream_paths(paths: list[str], chunk_bytes: int = 64 << 20):
+    """Yield raw corpus chunks of about ``chunk_bytes`` from files joined
+    with \\n\\n separators (``api.build_corpus``'s corpus), split at UTF-8
+    boundaries."""
+    first = True
+    pending = b""
+    for path in paths:
+        if not first:
+            pending += b"\n\n"
+        first = False
+        with open(path, "rb") as f:
+            while True:
+                block = f.read(chunk_bytes)
+                if not block:
+                    break
+                pending += block
+                while len(pending) >= chunk_bytes:
+                    cut = _utf8_safe_split(pending, chunk_bytes)
+                    if cut == 0:
+                        break  # no UTF-8 boundary in the chunk: let it grow
+                    yield pending[:cut]
+                    pending = pending[cut:]
+    if pending:
+        yield pending
+
+
+# Boundary decisions near a chunk's end are provisional: the rules look
+# ahead up to 3 codepoints (contractions), so a boundary within the last
+# MARGIN bytes could flip once more text arrives. Words that start before
+# the margin are final.
+MARGIN = 16
+
+
+def make_stream_chunked(chunks, pre_tokenizer=None) -> SymbolStream:
+    """Streamed equivalent of pre-tokenize + ``make_stream(dedup=True)``.
+
+    Each raw chunk is pre-tokenized with the trailing partial word carried
+    into the next chunk, so word boundaries are computed with full context:
+    the carry restarts at the last final word start, NFC is idempotent on
+    the re-fed normalized carry, and the boundary rules never look left of
+    a word start. Host memory stays bounded by the unique-word mass plus
+    one chunk."""
+    from ..pretok import PreTokenizer
+
+    pt = pre_tokenizer or PreTokenizer()
+    acc = StreamAccumulator()
+    carry = b""
+    for raw in chunks:
+        data, starts = pt.pre_tokenize_bytes(carry + raw)
+        if len(data) == 0:
+            carry = b""
+            continue
+        ws = np.flatnonzero(starts.astype(bool))
+        ws = ws[ws < len(data) - MARGIN]
+        last = int(ws[-1]) if len(ws) else 0
+        if last > 0:
+            acc.add_chunk(data[:last], starts[:last])
+            carry = bytes(data[last:])
+        else:
+            carry = bytes(data)
+    if carry:
+        data, starts = pt.pre_tokenize_bytes(carry)
+        if len(data):
+            acc.add_chunk(data, starts)
+    return acc.finish()
 
 
 def pad_stream(stream: SymbolStream, multiple: int = 1024) -> SymbolStream:

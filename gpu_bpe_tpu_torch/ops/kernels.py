@@ -48,6 +48,7 @@ I32_MAX = 2**31 - 1
 
 LAUNCHES: Counter = Counter()  # kernel launches per wrapper; clear() to reset
 PROBE_LESS = "merge_compact_tracked/probe-less"  # LAUNCHES key of the no-window mode
+EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # LAUNCHES key of the explicit-probe mode
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -182,9 +183,16 @@ def window_probes(cand: torch.Tensor, counts: torch.Tensor, pair: torch.Tensor):
     return probes, n_aff
 
 
-def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, counts=None):
-    """Plain PyTorch version of ``merge_compact_tracked`` (same outputs, the
-    6-tuple without a window)."""
+def probe_list(words, count, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """An explicit probe list as the kernel reads it: int64 ``[N_PROBES]``
+    pairs and a 0-d int64 count, on ``device``."""
+    words = torch.as_tensor(words, dtype=torch.int64).to(device).reshape(N_PROBES)
+    return words.contiguous(), _dev_scalar(count, device)
+
+
+def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None):
+    """Plain PyTorch version of ``merge_compact_tracked`` (same outputs: the
+    9-tuple with a window, the 7-tuple with ``probes``, else the 6-tuple)."""
     dev = symbols.device
     cap = symbols.shape[0]
     n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
@@ -236,15 +244,21 @@ def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, co
     bins_l = acc_l.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
     bins_r = acc_r.to(torch.float32).reshape(TRACK_SIDE, TRACK_SIDE)
     n_new_t = torch.tensor(n_new, dtype=torch.int64, device=dev)
-    if cand is None:
+    if cand is None and probes is None:
         return sym2, w2, n_new_t, bins_l, bins_r, samp
 
-    probes, n_aff = window_probes(cand, counts, pair)
-    npe = int(n_aff) if int(n_aff) <= N_PROBES else 0
+    if probes is not None:  # the caller's list: its first `count` slots, count clamped to [0, N_PROBES]
+        words, count = probe_list(*probes, dev)
+        probes, npe = words & 0xFFFFFFFF, min(max(int(count), 0), N_PROBES)
+    else:
+        probes, n_aff = window_probes(cand, counts, pair)
+        npe = int(n_aff) if int(n_aff) <= N_PROBES else 0
     pcnt = torch.zeros(N_PROBES, dtype=torch.int64, device=dev)
     pairs = (ut << 16) | vt
     for k in range(npe):
         pcnt[k] = uw[v_ok & (pairs == probes[k])].sum()
+    if cand is None:
+        return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt
     return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt, probes, n_aff.to(torch.int64)
 
 
@@ -276,16 +290,26 @@ def merge_arenas(count: int, device) -> list:
     return [(base + i * row, v) for i, v in enumerate(views)]
 
 
-def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=None):
+def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None):
     """One merge ``pair`` -> ``new_id`` with stable compaction, created-pair
-    tracking and, in window mode, probe counts.
+    tracking and, in window and explicit-probe modes, probe counts.
 
     ``symbols``/``weights`` are int32 ``[cap]``, live in ``[0, n)``; what
-    lies past ``n`` is never matched. ``cand``/``counts`` are the int64
-    ``[W_SLOTS]`` candidate window, or both None for the probe-less mode
-    (the data-parallel trainer's; the kernel then reads no window and skips
-    the probe set-up). Returns ``(sym2, w2, n_new, bins_l, bins_r, samp,
-    pcnt, probes, n_aff)`` in window mode, the first six without a window:
+    lies past ``n`` is never matched. Three modes:
+
+    * window: ``cand``/``counts``, the int64 ``[W_SLOTS]`` candidate
+      window; the kernel derives the probe list from it. Returns ``(sym2,
+      w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff)``;
+    * explicit probes: ``probes=(words, count)``, ``words`` ``N_PROBES``
+      packed pairs (int64 holding their u32 values; a tensor or a
+      sequence) and ``count`` (0..N_PROBES, an int or a 0-d tensor) its
+      live leading slots, counted as they are (the Pallas ``probes=``
+      mode). Returns the first seven;
+    * probe-less: neither (the data-parallel trainer's and the replay's;
+      the kernel reads no window and skips the probe set-up). Returns the
+      first six.
+
+    A window and ``probes`` are exclusive. The outputs:
 
     * ``sym2``/``w2``: the merged, compacted stream, zero past ``n_new``;
       a site becomes ``new_id | (sym & WS_BIT)``, the overlap-collapse
@@ -300,7 +324,11 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
     * ``probes``/``pcnt``/``n_aff``: the affected window slots' count, the
       probe list (``window_probes``) and each probe's exact post-merge
       pair-stream count (valid for the first ``n_aff`` slots when
-      ``n_aff <= N_PROBES``; nothing is probed otherwise).
+      ``n_aff <= N_PROBES``; nothing is probed otherwise). With an explicit
+      list, ``pcnt[k]`` is the count of ``words[k]`` for ``k < count``
+      and 0 past it; like the Pallas mode, a probed pair with a zero member
+      may see the zero pad after ``n_new``, so callers probe only pairs of
+      nonzero tokens.
 
     The ``samp`` rule (weight descending, then token ascending over the
     whole stream) is the one the data-parallel trainer reduces across
@@ -309,13 +337,16 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
     On the card the small outputs are views of an allocation shared by
     ``POOL_CALLS`` calls (``merge_arenas``), each call's its own. Window-mode
     launches count under ``merge_compact_tracked`` in ``LAUNCHES``,
-    probe-less ones under ``PROBE_LESS``.
+    probe-less ones under ``PROBE_LESS`` and explicit-probe ones under
+    ``EXPLICIT_PROBES``.
     """
     window = () if cand is None and counts is None else (cand, counts)
     if len(window) and (cand is None or counts is None):
         raise ValueError("merge_compact_tracked: give both cand and counts, or neither")
+    if len(window) and probes is not None:
+        raise ValueError("merge_compact_tracked: a window and probes are exclusive")
     if _on_cpu(symbols, weights, *window):
-        return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts)
+        return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts, probes)
     from .build import load
 
     dev = symbols.device
@@ -328,25 +359,29 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
     if cap < 1:
         raise ValueError("merge_compact_tracked: empty stream")
     n, pair, new_id = _dev_scalar(n, dev), _dev_scalar(pair, dev), _dev_scalar(new_id, dev)
+    listed = () if probes is None else probe_list(*probes, dev)
     lib = load()["merge_compact_tracked"]
     stream = _stream(dev)
     key = ("merge_compact_tracked", dev.index, cap, stream)
     scratch = cached_scratch(key, dev, lambda: lib.mc_scratch_words(cap))
-    arena, (n_new, bins_l, bins_r, samp, pcnt, probes, n_aff) = _pooled(
+    arena, (n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff) = _pooled(
         ("merge_compact_tracked", dev.index, stream), lambda: merge_arenas(POOL_CALLS, dev))
     out = torch.empty(2, cap, dtype=torch.int32, device=dev)  # merged symbols, then weights
     with _on_device(dev):
         rc = lib.merge_compact_tracked(
             symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair.data_ptr(), new_id.data_ptr(),
-            cand.data_ptr() if window else 0, counts.data_ptr() if window else 0, out.data_ptr(), arena,
+            cand.data_ptr() if window else 0, counts.data_ptr() if window else 0,
+            listed[0].data_ptr() if listed else 0, listed[1].data_ptr() if listed else 0, out.data_ptr(), arena,
             scratch.data_ptr(), stream,
         )
     _check_scratch(rc, "merge_compact_tracked", key)
-    LAUNCHES["merge_compact_tracked" if window else PROBE_LESS] += 1
+    LAUNCHES["merge_compact_tracked" if window else EXPLICIT_PROBES if listed else PROBE_LESS] += 1
     sym2, w2 = out.unbind(0)
+    if listed:
+        return sym2, w2, n_new, bins_l, bins_r, samp, pcnt
     if not window:
         return sym2, w2, n_new, bins_l, bins_r, samp
-    return sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff
+    return sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff
 
 
 def merge_compact(symbols, weights, n, pair, new_id):

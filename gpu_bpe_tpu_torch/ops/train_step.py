@@ -86,10 +86,13 @@ def _i64(x, device) -> torch.Tensor:
 
 def init_state(symbols, weights, n: int, next_id: int, device="cuda") -> TrainState:
     """State for a padded stream (``symbols`` uint32 / ``weights`` int32 numpy
-    arrays or tensors of the capacity's length, zero past ``n``)."""
+    arrays of the capacity's length, or int32 tensors, zero past ``n``)."""
     dev = torch.device(device)
-    sym = torch.as_tensor(np.asarray(symbols, dtype=np.uint32).astype(np.int32)).to(dev)
-    w = torch.as_tensor(np.asarray(weights, dtype=np.int32)).to(dev)
+    if isinstance(symbols, torch.Tensor):
+        sym, w = symbols.to(device=dev, dtype=torch.int32), weights.to(device=dev, dtype=torch.int32)
+    else:
+        sym = torch.as_tensor(np.asarray(symbols, dtype=np.uint32).astype(np.int32)).to(dev)
+        w = torch.as_tensor(np.asarray(weights, dtype=np.int32)).to(dev)
     return TrainState(
         symbols=sym,
         weights=w,

@@ -4,11 +4,15 @@ Counterpart of ``gpu_bpe_tpu.ops.trainer.TPUTrainer``: per batch of up to
 ``BATCH_MERGES`` merges, one packed merge-log read, CPU vocab
 reconstruction and a progress callback with the reference's schema;
 capacities live on a power-of-two ladder and shrink as the stream compacts.
+With ``checkpoint_path`` the trainer writes a checkpoint every
+``checkpoint_every`` batches and at the end, and resumes from one that
+matches the stream (``ops/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
@@ -71,9 +75,13 @@ class Trainer:
         target_vocab_size: int = 4096,
         on_progress: ProgressFn | None = None,
         checkpoint_path: str | None = None,
+        checkpoint_every: int = 8,  # batches (1024 merges at the default batch)
     ) -> TrainingResult:
-        if checkpoint_path is not None:
-            raise NotImplementedError("checkpointing is not ported to gpu_bpe_tpu_torch yet")
+        """Train ``stream`` to ``target_vocab_size``. With
+        ``checkpoint_path``: a checkpoint there whose corpus fingerprint
+        matches the stream is resumed when the trainer's vocab is fresh
+        (anything else is ignored with a warning), and one is written every
+        ``checkpoint_every`` batches and at the end."""
         if stream.n == 0:
             raise ValueError("No symbols to train on — corpus is empty after pre-processing")
         if stream.total_bytes >= 2**31:
@@ -84,10 +92,24 @@ class Trainer:
 
         merges: list[tuple[int, int, int]] = []
         merge_counts: list[int] = []
-        padded = pad_stream(stream)
-        state = init_state(
-            padded.symbols, padded.weights, stream.n, self.vocab.next_token_id, self.device,
-        )
+        fingerprint = None
+        state = None
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            from .checkpoint import TrainingCheckpoint, fingerprint_stream, resume_stream
+
+            ckpt = TrainingCheckpoint.load(checkpoint_path)
+            fingerprint = fingerprint_stream(stream)
+            if ckpt.corpus_fingerprint == fingerprint and self.vocab.size == 256:
+                state, self.vocab = resume_stream(stream, ckpt, strict=False, device=self.device)
+                merges, merge_counts = list(ckpt.merges), list(ckpt.merge_counts)
+                logger.info("resumed from %s at %d merges", checkpoint_path, len(merges))
+            else:
+                logger.warning("checkpoint %s does not match the corpus or the vocab; ignoring it", checkpoint_path)
+        if state is None:
+            padded = pad_stream(stream)
+            state = init_state(
+                padded.symbols, padded.weights, stream.n, self.vocab.next_token_id, self.device,
+            )
         merges_needed = max(target_vocab_size - self.vocab.size, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # upload outside the clock
@@ -96,6 +118,18 @@ class Trainer:
         early_stop = False
         recounts_total = 0
         duals_total = 0
+        batches_run = 0
+
+        def write_checkpoint():
+            from .checkpoint import TrainingCheckpoint, fingerprint_stream
+
+            nonlocal fingerprint
+            if fingerprint is None:
+                fingerprint = fingerprint_stream(stream)
+            TrainingCheckpoint(
+                merges=merges, merge_counts=merge_counts, next_token_id=self.vocab.next_token_id,
+                corpus_fingerprint=fingerprint, target_vocab_size=target_vocab_size,
+            ).save(checkpoint_path)
 
         while total_done < merges_needed and not early_stop:
             batch = min(self.batch_merges, merges_needed - total_done)
@@ -136,7 +170,12 @@ class Trainer:
                 })
             if early_stop:
                 logger.info("early stop after %d merges", total_done)
+            batches_run += 1
+            if checkpoint_path and batches_run % checkpoint_every == 0:
+                write_checkpoint()
 
+        if checkpoint_path:
+            write_checkpoint()
         elapsed = time.perf_counter() - start
         return TrainingResult(
             vocab=list(self.vocab.entries),

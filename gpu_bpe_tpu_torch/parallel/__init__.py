@@ -11,7 +11,7 @@ batch_merges)``, which every rank calls with its own state.
 
 from .dist_train import DistState, dist_train_batch, init_dist_state, shard_stream
 from .mesh import DataGroup
-from .multihost import init_multihost, one_rank_group, shutdown_multihost
+from .multihost import init_multihost, multihost_requested, one_rank_group, shutdown_multihost
 from .trainer import DistributedTrainer
 
 __all__ = [
@@ -21,6 +21,7 @@ __all__ = [
     "dist_train_batch",
     "init_dist_state",
     "init_multihost",
+    "multihost_requested",
     "one_rank_group",
     "shard_stream",
     "shutdown_multihost",

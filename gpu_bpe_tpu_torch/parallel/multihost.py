@@ -17,6 +17,10 @@ where the script calls ``init_multihost()``, then
 ``api.train(corpus, TrainConfig(backend="dist"))``, then
 ``shutdown_multihost()``. The three values may also be passed as
 arguments. ``device="cpu"`` runs the same program over gloo on the CPU.
+The CLI takes the same recipe, as flags or as the environment variables::
+
+    python -m gpu_bpe_tpu_torch.cli train corpus/ --backend dist \\
+        --coordinator host0:9876 --num-processes N --process-id $RANK
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ import torch.distributed as dist
 ENV_COORDINATOR = "GPU_BPE_TPU_COORDINATOR"
 ENV_NUM_PROCESSES = "GPU_BPE_TPU_NUM_PROCESSES"
 ENV_PROCESS_ID = "GPU_BPE_TPU_PROCESS_ID"
+
+
+def multihost_requested(args=None) -> bool:
+    """True when a multi-process launch is configured, by a ``coordinator``
+    attribute of ``args`` (the CLI's flags) or by the environment."""
+    if args is not None and getattr(args, "coordinator", None):
+        return True
+    return bool(os.environ.get(ENV_COORDINATOR))
+
 
 # A rank that never arrives, or a collective that never completes, fails
 # the run after this long instead of hanging it.

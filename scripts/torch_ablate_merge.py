@@ -47,12 +47,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 VARIANTS = {
     "merge_compact_tracked": {
         "base": [],
-        "track_no_probes": [("if (npe && (vt == a || ut == b)) {", "if (false) {")],
+        "track_no_probes": [("if (npe && (any_pair || vt == a || ut == b)) {", "if (false) {")],
         "track_no_created": [("if (vt == z16 && wv > 0) {", "if (false) {"),
                              ("if (ut == z16 && wu > 0) {", "if (false) {")],
-        "track_nothing": [("if (npe && (vt == a || ut == b)) {", "if (false) {"),
+        "track_nothing": [("if (npe && (any_pair || vt == a || ut == b)) {", "if (false) {"),
                           ("if (vt == z16 && wv > 0) {", "if (false) {"), ("if (ut == z16 && wu > 0) {", "if (false) {")],
-        "track_loads_only": [("if (npe && (vt == a || ut == b)) {", "if (false) {"),
+        "track_loads_only": [("if (npe && (any_pair || vt == a || ut == b)) {", "if (false) {"),
                              ("if (vt == z16 && wv > 0) {", "if (wv == -7 && wu == -7) {"),
                              ("if (ut == z16 && wu > 0) {", "if (false) {")],
         "track_loads_1": [("constexpr int TRACK_LOADS = 2;", "constexpr int TRACK_LOADS = 1;")],
@@ -137,7 +137,7 @@ def main() -> int:
             def run():
                 out = torch.empty(2, cap, dtype=torch.int32, device=dev)
                 arena = torch.empty(kernels.ARENA_WORDS, dtype=torch.int64, device=dev)
-                ptrs = [x.data_ptr() for x in margs[:2]] + [cap] + [x.data_ptr() for x in margs[2:]]
+                ptrs = [x.data_ptr() for x in margs[:2]] + [cap] + [x.data_ptr() for x in margs[2:]] + [0, 0]
                 rc = lib.merge_compact_tracked(*ptrs, out.data_ptr(), arena.data_ptr(), scratch.data_ptr(), stream)
                 if rc:
                     raise RuntimeError(f"launch failed with cudaError {rc}")

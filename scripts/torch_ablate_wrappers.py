@@ -79,7 +79,8 @@ def main() -> int:
     arena = torch.empty(k.ARENA_WORDS, dtype=torch.int64, device=dev)
     cout = torch.empty(2, dtype=torch.int64, device=dev)
     mptrs = (symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair_t.data_ptr(), new_id.data_ptr(),
-             cand.data_ptr(), counts.data_ptr(), out.data_ptr(), arena.data_ptr(), scratch_m.data_ptr(), stream)
+             cand.data_ptr(), counts.data_ptr(), 0, 0, out.data_ptr(), arena.data_ptr(), scratch_m.data_ptr(),
+             stream)
     cptrs = (m[0].data_ptr(), m[1].data_ptr(), cap, m[2].data_ptr(), slots[0].data_ptr(), slots[1].data_ptr(),
              cout.data_ptr(), scratch_c.data_ptr(), stream)
     i64 = dict(dtype=torch.int64, device=dev)

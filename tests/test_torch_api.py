@@ -106,11 +106,14 @@ def test_save_load_roundtrip(models, tmp_path):
 
 
 def test_unported_paths_raise(models, corpus):
-    _, tt = models
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tt.export_hf_json()
-    with pytest.raises(NotImplementedError, match="hf_io"):
-        BPEModel.from_json('{"model": {"type": "BPE"}}')
+    """The Hugging Face export and import equal the JAX package's; the TPU
+    backend is not the port's and raises."""
+    jt, tt = models
+    for pretok in ("none", "byte-level"):
+        hf = tt.export_hf_json(pretok=pretok)
+        assert hf == jt.export_hf_json(pretok=pretok)
+        back, jback = BPEModel.from_json(hf), japi.BPETokenizer.from_json(hf, backend="cpu").model
+        assert back.vocab == tt.model.vocab == jback.vocab and back.merges == jback.merges
     with pytest.raises(ValueError):
         api.train(corpus, _cfg(api, backend="tpu"))
     with pytest.raises(ValueError):

@@ -76,15 +76,26 @@ def test_byte_heuristic_bitwise(english_text):
 def test_import_leaves_out_jax_and_the_reference_package():
     """Every module of the port, found by walking the package (a new
     subpackage is covered without a change here), imports neither JAX nor
-    the JAX package."""
+    the JAX package: both are blocked, and none is loaded at the end."""
     code = (
-        "import importlib, pkgutil, sys, gpu_bpe_tpu_torch\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'gpu_bpe_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import gpu_bpe_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(gpu_bpe_tpu_torch.__path__, 'gpu_bpe_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'gpu_bpe_tpu_torch.parallel.dist_train', 'gpu_bpe_tpu_torch.convert',\n"
-        "        'gpu_bpe_tpu_torch.unicode.cpp_backend'} <= set(names), names\n"
+        "        'gpu_bpe_tpu_torch.unicode.cpp_backend', 'gpu_bpe_tpu_torch.cli',\n"
+        "        'gpu_bpe_tpu_torch.ops.native', 'gpu_bpe_tpu_torch.ops.checkpoint',\n"
+        "        'gpu_bpe_tpu_torch.ops.selftest', 'gpu_bpe_tpu_torch.core.hf_io',\n"
+        "        'gpu_bpe_tpu_torch.utils.logging', 'gpu_bpe_tpu_torch.utils.timing'} <= set(names), names\n"
         "gpu_bpe_tpu_torch.unicode.get_backend()\n"
+        "import gpu_bpe_tpu_torch.ops.native as nat\n"
+        "assert nat.native_available()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu') "
         "or m.startswith(('jax.', 'gpu_bpe_tpu.'))]\n"
         "print(len(names), bad)\n"

@@ -273,10 +273,15 @@ def test_recount_budget_only_moves_batch_ends(english_text):
     assert runs[1][1] > runs[None][1]
 
 
-def test_checkpoint_not_ported():
-    stream = make_stream(b"hello world", None)
-    with pytest.raises(NotImplementedError):
-        Trainer(device="cpu").train_stream(stream, 300, checkpoint_path="x.json")
+def test_checkpoint_not_ported(tmp_path):
+    """Checkpointing is ported (tests/test_torch_checkpoint.py): a run with
+    ``checkpoint_path`` writes its merge list there."""
+    from gpu_bpe_tpu_torch.ops.checkpoint import TrainingCheckpoint
+
+    stream = make_stream(b"hello world, hello world", None)
+    path = str(tmp_path / "x.json")
+    res = Trainer(device="cpu").train_stream(stream, 300, checkpoint_path=path)
+    assert TrainingCheckpoint.load(path).merges == res.merges and res.merges
 
 
 def test_cuda_device_requires_a_card():
