@@ -131,11 +131,27 @@ Phases, each printing one JSON line:
    the explicit-probe mode of merge_compact_tracked on phase 3's real
    first merge (the window's affected pairs as the caller's list), bitwise
    against its plain version and the window-mode call, timed in turns
-   with it.
+   with it;
+20. unicode: (a) `backend_name()` must be `cpp-decoder`, and every one of
+   the 97 exports of the native Unicode library bound by
+   `unicode/cpp_backend.py` is held against the port's Python backend on a
+   fixed sample (`unicode.selftest`; whether the optional `regex` module is
+   present is printed); (b) the reference-compat Hangul mode through
+   `api.train` on the card: phase 11's corpus with every other line
+   replaced by NFD Korean words (`synth_hangul_corpus`, about half of its
+   bytes jamo), 256 + 2048 tokens, in the default mode and with
+   `set_ref_hangul(True)`: each mode's merge list and counts must hash to
+   the JAX package's record (docs/artifacts/ref_hangul_cpu16mb.json,
+   written by `scripts/ref_hangul_record.py`); on each mode's 1 MB cut
+   (128 merges) `api.train` on the card must equal the CPU oracle
+   (`backend="cpu"`), `api.train_files` on the cut in a file, and the CLI's
+   `train` in a process of its own that takes the mode from
+   `GPU_BPE_TPU_REF_HANGUL`; the two modes' lists must differ;
+   pre-tokenize MB/s and merges/s with the card's name and power limit.
 
 The launch counts of the kernels' line are the sums over the main-path
-runs (phases 4, 8, 11-17 and 19, every rank's in phase 15), each counted
-from 0; the explicit-probe mode runs on the selftest's path only.
+runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15), each
+counted from 0; the explicit-probe mode runs on the selftest's path only.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -145,6 +161,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -170,6 +187,8 @@ API_MERGES = 2048  # the JAX package's recorded 16 MB certificate run
 NODEDUP_MERGES = 1024
 NODEDUP_FORCE = 128
 CERT16 = "docs/artifacts/certificate_validation_cpu16mb.json"
+REF_HANGUL = "docs/artifacts/ref_hangul_cpu16mb.json"  # the JAX package's lists in both Hangul modes
+UNICODE_EXPORTS = 97  # the native decoder's exports bound by unicode/cpp_backend.py
 REPO = Path(__file__).resolve().parent
 DEVICE_PASSES = 5  # chained passes behind the device MB/s
 PALLAS = "gpu_bpe_tpu/ops/pallas_kernels.py"
@@ -232,6 +251,41 @@ def synth_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 120_000) -> byte
         parts.append(blob)
         size += len(blob)
     return b"".join(parts)[:n_bytes]
+
+
+def synth_hangul_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 20_000) -> bytes:
+    """``synth_corpus(n_bytes, seed)`` with every other line replaced by a
+    line of NFD Korean words: Zipfian draws from a table of 1-4-syllable
+    words, each syllable written as conjoining jamo (L V, or L V T), which
+    NFC composes into precomposed syllables and the reference-compat Hangul
+    mode leaves as they are. About half of the bytes are Korean. The corpus
+    ends at the last whole line within ``n_bytes``, so any prefix cut at a
+    newline is valid UTF-8."""
+    base = synth_corpus(n_bytes, seed).split(b"\n")
+    rng = np.random.default_rng(seed + 1)
+    lead = rng.integers(0, 19, size=(vocab_size, 4))
+    vowel = rng.integers(0, 21, size=(vocab_size, 4))
+    trail = np.where(rng.random((vocab_size, 4)) < 0.4, rng.integers(1, 28, size=(vocab_size, 4)), 0)
+    n_syll = rng.integers(1, 5, size=vocab_size)
+
+    def syllable(w: int, k: int) -> str:
+        return chr(0x1100 + lead[w, k]) + chr(0x1161 + vowel[w, k]) + (chr(0x11A7 + trail[w, k]) if trail[w, k] else "")
+
+    words = np.array(["".join(syllable(w, k) for k in range(n_syll[w])) for w in range(vocab_size)], dtype=object)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = ranks**-1.05
+    probs /= probs.sum()
+    draws = iter(rng.choice(vocab_size, size=len(base) * 8, p=probs))
+    lines = []
+    for i, line in enumerate(base):
+        if i % 2:
+            parts = []
+            while sum(len(p) for p in parts) < len(line):
+                parts.append(words[next(draws)].encode())
+            line = b" ".join(parts)
+        lines.append(line)
+    out = b"\n".join(lines)
+    return out[: out.rfind(b"\n", 0, n_bytes) + 1]
 
 
 def synth_vocab_64k(corpus: bytes) -> list[bytes]:
@@ -1627,6 +1681,95 @@ def explicit_probe_row(torch, kernels, real, dev) -> dict:
     return row
 
 
+# ───────────────────────────── the Unicode library ─────────────────────────────
+
+
+def unicode_phase(torch, smi: str, launches: dict) -> None:
+    """Phase 20: (a) the native Unicode library built on this host, every
+    bound export held against the port's Python backend
+    (``unicode.selftest``); (b) the reference-compat Hangul mode through
+    ``api.train`` on the card, at phase 11's recipe on the decomposed-jamo
+    corpus, in both modes: each full list hashes to the JAX package's
+    record, each 1 MB cut equals the CPU oracle, and the modes differ."""
+    import importlib.util
+
+    from gpu_bpe_tpu_torch import api
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.pretok import PreTokenizer
+    from gpu_bpe_tpu_torch.unicode import backend_name, get_backend
+    from gpu_bpe_tpu_torch.unicode.selftest import run_unicode_selftest
+
+    backend = backend_name()
+    t0 = time.perf_counter()
+    held = run_unicode_selftest(get_backend())
+    failed = [n for n, ok in held.items() if not ok]
+    emit({"phase": "unicode_exports", "unicode_backend": backend,
+          "regex_present": importlib.util.find_spec("regex") is not None, "exports": len(held),
+          "failed": failed, "seconds": time.perf_counter() - t0})
+    if backend != "cpp-decoder" or failed or len(held) != UNICODE_EXPORTS:
+        raise AssertionError(f"unicode library on the {backend} backend: {len(held)} exports, failed {failed}")
+
+    corpus = synth_hangul_corpus(CORPUS_BYTES, seed=0)
+    cut = corpus[: corpus.rfind(b"\n", 0, SMALL_BYTES) + 1]
+    record = json.loads((REPO / REF_HANGUL).read_text())
+    if record["corpus_bytes"] != len(corpus) or record["merges"] != API_MERGES:
+        raise AssertionError(f"the decomposed-jamo corpus has {len(corpus)} bytes, the record {record['corpus_bytes']}")
+    lists = {}
+    b = get_backend()
+    was = b.ref_hangul
+    try:
+        for label, on in (("default", False), ("ref_hangul", True)):
+            b.set_ref_hangul(on)
+            t0 = time.perf_counter()
+            data, _ = PreTokenizer().pre_tokenize_bytes(corpus)
+            pretok_s = time.perf_counter() - t0
+            kernels.LAUNCHES.clear()
+            _, res = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, show_progress=False))
+            torch.cuda.synchronize()
+            run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+            got = sha_pair(res)
+            want = {k: record[label][k] for k in got}
+            cut_config = api.TrainConfig(vocab_size=256 + SMALL_MERGES, show_progress=False)
+            cut_tok, cut_res = api.train(cut, cut_config)
+            on_cut = {"cuda": cut_res, "reference": api.train(cut, api.TrainConfig(
+                vocab_size=256 + SMALL_MERGES, show_progress=False, backend="cpu"))[1]}
+            with tempfile.TemporaryDirectory() as tmp:
+                # the streamed entry point in-process, and the CLI in a process
+                # of its own that takes the mode from the environment
+                path, model = Path(tmp, "cut.txt"), Path(tmp, "model.json")
+                path.write_bytes(cut)
+                on_cut["train_files"] = api.train_files([str(path)], cut_config, chunk_bytes=1 << 18)[1]
+                env = {**os.environ, "GPU_BPE_TPU_REF_HANGUL": "1"} if on else {
+                    k: v for k, v in os.environ.items() if k != "GPU_BPE_TPU_REF_HANGUL"}
+                argv = ["train", str(path), "-o", str(model), "--vocab-size", str(256 + SMALL_MERGES)]
+                cli = subprocess.run([sys.executable, "-m", "gpu_bpe_tpu_torch.cli", *argv], cwd=REPO, env=env,
+                                     capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+                cli_equal = cli.returncode == 0 and model.read_bytes() == cut_tok.model.to_json().encode()
+            cut_equal = all(r.merges == cut_res.merges and r.merge_counts == cut_res.merge_counts
+                            for r in on_cut.values()) and cli_equal
+            emit({"phase": "unicode_ref_hangul", "mode": label, "ref_hangul": b.ref_hangul, "bytes": len(corpus),
+                  "normalized_bytes": len(data), "jamo_byte_share": record["jamo_byte_share"],
+                  "pretokenize_s": pretok_s, "pretokenize_mb_per_s": len(corpus) / pretok_s / 1e6,
+                  "merges": len(res.merges), "seconds": res.training_time_s,
+                  "merges_per_s": len(res.merges) / res.training_time_s, "recounts": res.recounts,
+                  "first_merges": [list(m) for m in res.merges[:4]], "launches": run, **got, "record": REF_HANGUL,
+                  "equal_to_record": got == want, "cut_bytes": len(cut), "cut_merges": len(cut_res.merges),
+                  "cut_cuda_eq_reference_eq_train_files_eq_cli": cut_equal, "nvidia_smi": smi})
+            if b.ref_hangul is not on or got != want:
+                raise AssertionError(f"{label}: api.train's merge list hashes {got}, the JAX package recorded {want}")
+            if not cut_equal or len(cut_res.merges) != SMALL_MERGES or min(run.values()) <= 0:
+                raise AssertionError(f"{label}: the 1 MB cut differs between api.train on the card, the CPU "
+                                     f"oracle, train_files and the CLI ({cli.stderr[-2000:]}), "
+                                     f"or a training kernel never launched: {run}")
+            lists[label] = res.merges
+            for k in TRAIN_KERNELS:
+                launches[k] += run[k]
+    finally:
+        b.set_ref_hangul(was)
+    if lists["default"] == lists["ref_hangul"]:
+        raise AssertionError("the two Hangul modes gave the same merge list")
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -1802,6 +1945,7 @@ def main() -> int:
     launches[EXPLICIT_PROBES] = 0
     selftest_phase(torch, launches)
     rows[EXPLICIT_PROBES] = explicit_probe_row(torch, kernels, real, torch.device("cuda"))
+    unicode_phase(torch, smi, launches)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

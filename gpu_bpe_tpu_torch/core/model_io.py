@@ -81,6 +81,11 @@ class BPEModel:
     def from_json(cls, text: str | bytes) -> "BPEModel":
         return cls.from_json_obj(json.loads(text))
 
+    @classmethod
+    def from_vocab_obj(cls, vocab: Vocab, merges: list[tuple[int, int, int]]) -> "BPEModel":
+        """A model of a ``Vocab``'s entries and the merges that made them."""
+        return cls(vocab=list(vocab.entries), merges=merges)
+
     def to_vocab(self) -> Vocab:
         return Vocab.from_entries(self.vocab)
 

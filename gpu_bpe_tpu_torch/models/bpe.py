@@ -79,6 +79,12 @@ class BPETokenizer:
     def decode_text(self, tokens) -> str:
         return self.decode(tokens).decode("utf-8", errors="replace")
 
+    def compression_ratio(self, data: bytes, tokens) -> float:
+        """Bytes per token of ``data`` tokenized as ``tokens`` (0.0 for no
+        tokens)."""
+        n = len(tokens)
+        return len(data) / n if n else 0.0
+
     def compile_trie(self) -> bytes:
         return compile_vocab_to_trie(self.model.vocab)
 

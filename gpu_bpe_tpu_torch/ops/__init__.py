@@ -2,7 +2,7 @@
 and their kernels."""
 
 from .ingest import SymbolStream, make_stream, pad_stream
-from .train_step import TrainState, init_state, train_batch
+from .train_step import TrainState, apply_merge_device, find_best_pair, init_state, train_batch
 from .tokenize import Tokenizer
 from .trainer import Trainer
 
@@ -11,6 +11,8 @@ __all__ = [
     "Tokenizer",
     "TrainState",
     "Trainer",
+    "apply_merge_device",
+    "find_best_pair",
     "init_state",
     "make_stream",
     "pad_stream",

@@ -271,7 +271,14 @@ def _utf8_safe_split(buf: bytes, limit: int) -> int:
 def stream_paths(paths: list[str], chunk_bytes: int = 64 << 20):
     """Yield raw corpus chunks of about ``chunk_bytes`` from files joined
     with \\n\\n separators (``api.build_corpus``'s corpus), split at UTF-8
-    boundaries."""
+    boundaries.
+
+    A chunk is cut only once the byte after it has been read, so no cut
+    falls inside a UTF-8 sequence. A chunk that ended inside one would fail
+    strict decoding and take the pre-tokenizer's raw-bytes path, which skips
+    NFC for the whole chunk and so changes the stream of text that NFC
+    changes (decomposed accents, conjoining jamo). The JAX package's
+    ``stream_paths`` yields a buffer of exactly ``chunk_bytes`` as it is."""
     first = True
     pending = b""
     for path in paths:
@@ -284,7 +291,7 @@ def stream_paths(paths: list[str], chunk_bytes: int = 64 << 20):
                 if not block:
                     break
                 pending += block
-                while len(pending) >= chunk_bytes:
+                while len(pending) > chunk_bytes:
                     cut = _utf8_safe_split(pending, chunk_bytes)
                     if cut == 0:
                         break  # no UTF-8 boundary in the chunk: let it grow

@@ -42,6 +42,7 @@ from .kernels import (
     _to_i32,
     compact_mask,
     count_pairs2,
+    merge_compact,
     merge_compact_tracked,
     window_post,
 )
@@ -163,6 +164,27 @@ def _pick_window(sp: torch.Tensor, run_total: torch.Tensor):
     cand = torch.cat([cand, cand.new_full((S_CREATED,), INVALID)])
     counts = torch.cat([counts, counts.new_full((S_CREATED,), -1)])
     return bp, bc, cand, counts, theta
+
+
+def find_best_pair(symbols: torch.Tensor, weights: torch.Tensor, n):
+    """Exact weighted argmax pair of a hole-free stream, the single-call
+    API: ``(pair, count)`` as 0-d int64 tensors, count descending then pair
+    id ascending; ``(0, 0)`` when no pair is live. One sort of the pair ids
+    and their run totals."""
+    pair, valid = _pair_ids(symbols, n)
+    sp, order = torch.sort(pair)
+    run_total = _run_totals(sp, torch.where(valid, weights.to(torch.int64), 0)[order])
+    bc = run_total.max()
+    bp = torch.where((run_total == bc) & (sp != 0), sp, INVALID).min()
+    return torch.where(bc > 0, bp, 0), bc
+
+
+def apply_merge_device(symbols: torch.Tensor, weights: torch.Tensor, n, pair, new_id):
+    """One merge ``pair`` -> ``new_id`` with immediate compaction of a
+    hole-free int32 stream: ``(symbols', weights', n')``, zero past ``n'``.
+    The probe-less ``merge_compact`` kernel on the card, its plain version
+    for CPU tensors."""
+    return merge_compact(symbols, weights, n, pair, new_id)
 
 
 # From this capacity on the recount runs the two-level segmented scheme

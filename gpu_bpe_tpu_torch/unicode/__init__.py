@@ -1,5 +1,8 @@
-"""Unicode backend of the pre-tokenizer: normalization and batch
-classification, in two implementations with one interface:
+"""The Unicode library: the reference decoder's API (property predicates,
+case maps, the four normalization forms, scripts, blocks, identifier sets,
+confusables, sanitizing, UTF-8/16/32 transcoding, UAX #29 segmentation)
+and the pre-tokenizer's batch classification, in two implementations with
+one interface:
 
 * ``cpp-decoder``: the native decoder (``cpp/decoder.cpp``), built with g++
   into ``gpu_bpe_tpu_torch/_build/`` at first use; the hot path;
@@ -7,7 +10,12 @@ classification, in two implementations with one interface:
   reference's property data, for hosts without g++.
 
 ``get_backend()`` returns the native one when it builds, logs which one it
-took, and ``backend_name()`` says which.
+took, and ``backend_name()`` says which. The reference-compat Hangul mode
+(``set_ref_hangul``, or ``GPU_BPE_TPU_REF_HANGUL`` set before the backend is
+created) leaves Hangul syllables and conjoining jamo unnormalized, as the
+reference does; the pre-tokenizer, and so training, follows it. The
+optional ``regex`` module gives the Python backend the exact UAX #29 word
+and sentence rules (``segmentation``).
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ from __future__ import annotations
 import logging
 
 from .fallback import CharClass, PyUnicodeBackend, class_table
-from .utf8 import utf8_byte_lengths, utf8_to_codepoints
+from .utf8 import utf8_byte_length, utf8_byte_lengths, utf8_to_codepoints
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +56,7 @@ __all__ = [
     "backend_name",
     "class_table",
     "get_backend",
+    "utf8_byte_length",
     "utf8_byte_lengths",
     "utf8_to_codepoints",
 ]

@@ -13,8 +13,20 @@ from __future__ import annotations
 import numpy as np
 
 
+def utf8_byte_length(cp: int) -> int:
+    """Encoded UTF-8 length of one codepoint."""
+    if cp <= 0x7F:
+        return 1
+    if cp <= 0x7FF:
+        return 2
+    if cp <= 0xFFFF:
+        return 3
+    return 4
+
+
 def utf8_byte_lengths(cps: np.ndarray) -> np.ndarray:
-    """Encoded UTF-8 length of each codepoint."""
+    """Encoded UTF-8 length of each codepoint (``utf8_byte_length`` over an
+    array)."""
     cps = np.asarray(cps, dtype=np.int64)
     return (1 + (cps > 0x7F).astype(np.int64) + (cps > 0x7FF) + (cps > 0xFFFF)).astype(np.int64)
 
@@ -93,3 +105,10 @@ def utf8_to_codepoints(data: bytes) -> np.ndarray:
     cp = np.where(size == 3, three, cp)
     cp = np.where(size == 4, four, cp)
     return cp.astype(np.uint32)
+
+
+def codepoints_to_utf8(cps: np.ndarray) -> bytes:
+    """Codepoints -> UTF-8 bytes (surrogates pass through as their 3-byte
+    forms)."""
+    cps = np.asarray(cps, dtype=np.uint32)
+    return "".join(chr(int(c)) for c in cps).encode("utf-8", errors="surrogatepass")

@@ -76,12 +76,14 @@ def test_byte_heuristic_bitwise(english_text):
 def test_import_leaves_out_jax_and_the_reference_package():
     """Every module of the port, found by walking the package (a new
     subpackage is covered without a change here), imports neither JAX nor
-    the JAX package: both are blocked, and none is loaded at the end."""
+    the JAX package: both are blocked, and none is loaded at the end. The
+    optional ``regex`` module is blocked too, and the Unicode library,
+    segmentation included, still runs."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'gpu_bpe_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'gpu_bpe_tpu', 'regex'):\n"
         "            raise ImportError(f'blocked: {name}')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import gpu_bpe_tpu_torch\n"
@@ -92,12 +94,19 @@ def test_import_leaves_out_jax_and_the_reference_package():
         "        'gpu_bpe_tpu_torch.unicode.cpp_backend', 'gpu_bpe_tpu_torch.cli',\n"
         "        'gpu_bpe_tpu_torch.ops.native', 'gpu_bpe_tpu_torch.ops.checkpoint',\n"
         "        'gpu_bpe_tpu_torch.ops.selftest', 'gpu_bpe_tpu_torch.core.hf_io',\n"
-        "        'gpu_bpe_tpu_torch.utils.logging', 'gpu_bpe_tpu_torch.utils.timing'} <= set(names), names\n"
-        "gpu_bpe_tpu_torch.unicode.get_backend()\n"
+        "        'gpu_bpe_tpu_torch.utils.logging', 'gpu_bpe_tpu_torch.utils.timing',\n"
+        "        'gpu_bpe_tpu_torch.unicode.segmentation', 'gpu_bpe_tpu_torch.unicode.enums',\n"
+        "        'gpu_bpe_tpu_torch.unicode.selftest'} <= set(names), names\n"
+        "from gpu_bpe_tpu_torch import unicode as u\n"
+        "from gpu_bpe_tpu_torch.unicode import segmentation as seg\n"
+        "b = u.get_backend()\n"
+        "assert b.name == 'cpp-decoder' and u.PyUnicodeBackend().count_words('two words.') == 2\n"
+        "assert seg.count_sentences('One. Two!') == 2 and seg.count_graphemes('e\\u0301x') == 2\n"
+        "assert b.is_suspicious('p\\u0430ypal') and b.get_skeleton('\\ufb01le') == 'file'\n"
         "import gpu_bpe_tpu_torch.ops.native as nat\n"
         "assert nat.native_available()\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu') "
-        "or m.startswith(('jax.', 'gpu_bpe_tpu.'))]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu', 'regex') "
+        "or m.startswith(('jax.', 'gpu_bpe_tpu.', 'regex.'))]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -156,6 +156,38 @@ def test_stream_paths_separators(tmp_path):
                   ingest.make_stream(data, starts, dedup=True))
 
 
+def test_stream_paths_never_cut_a_character_of_nfd_text(tmp_path):
+    """Files of decomposed text (NFD accents and conjoining jamo) larger
+    than a chunk: every chunk decodes, so each is normalized, and the
+    streamed stream equals the monolithic one. The JAX package's
+    stream_paths yields a buffer of exactly chunk_bytes as it is, so a cut
+    inside a character sends that chunk down the raw-bytes path, without
+    NFC, and its stream differs."""
+    import unicodedata
+
+    text = unicodedata.normalize("NFD", "café naïve étude 한국어 조합 각 " * 120)
+    path = tmp_path / "nfd.txt"
+    path.write_bytes(text.encode())
+    data, starts = PreTokenizer().pre_tokenize_bytes(text.encode())
+    whole = ingest.make_stream(data, starts, dedup=True)
+    for chunk in (100, 256, 1000):
+        chunks = list(ingest.stream_paths([str(path)], chunk_bytes=chunk))
+        assert b"".join(chunks) == text.encode()
+        assert all(len(c) <= chunk and c.decode("utf-8") for c in chunks[:-1])
+        _assert_equal(ingest.make_stream_chunked(iter(chunks)), whole)
+    jax_chunks = list(jingest.stream_paths([str(path)], chunk_bytes=256))
+    assert not all(_decodes(c) for c in jax_chunks)
+    assert jingest.make_stream_chunked(iter(jax_chunks)).n != whole.n
+
+
+def _decodes(data: bytes) -> bool:
+    try:
+        data.decode("utf-8")
+        return True
+    except UnicodeDecodeError:
+        return False
+
+
 def test_utf8_safe_split():
     buf = "aé中".encode()  # 1 + 2 + 3 bytes
     assert [ingest._utf8_safe_split(buf, k) for k in range(8)] == [
