@@ -147,11 +147,25 @@ Phases, each printing one JSON line:
    (`backend="cpu"`), `api.train_files` on the cut in a file, and the CLI's
    `train` in a process of its own that takes the mode from
    `GPU_BPE_TPU_REF_HANGUL`; the two modes' lists must differ;
-   pre-tokenize MB/s and merges/s with the card's name and power limit.
+   pre-tokenize MB/s and merges/s with the card's name and power limit;
+21. multi_merge: `Trainer(multi_merge=True)` (the multi-merge iteration,
+   up to three merges per certificate decision) on phase 4's stream for
+   1024 merges: the merge list and counts must equal phase 4's, duals > 0,
+   merge_compact_tracked and count_pairs2 must launch and window_post must
+   not; merges/s, duals, recounts, host reads per merge by site and the
+   neutralised merges (launches past the merges made); `api.train` on
+   phase 11's recipe with `GPU_BPE_TPU_MULTI=1` must hash to the 16 MB
+   record; `force_recount=True` for 256 merges must equal phase 4's first
+   256; phase 12's no-dedup stream at 2^25 for 256 merges must equal
+   phase 12's first 256, with segmented recounts and compact_mask; then
+   the default and the multi-merge trainer in turns on phase 4's stream,
+   five runs each: merges/s medians, extremes and host reads per merge,
+   with the card's name and power limit.
 
 The launch counts of the kernels' line are the sums over the main-path
-runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15), each
-counted from 0; the explicit-probe mode runs on the selftest's path only.
+runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, and phase
+21's main and 2^25 runs), each counted from 0; the explicit-probe mode
+runs on the selftest's path only.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -214,6 +228,8 @@ CKPT_BATCH = 128  # merges per batch of the checkpointed run, a checkpoint after
 CKPT_MERGES = 512  # merges before the resume (phase 4 goes on to MERGES)
 CLI_TIMEOUT_S = 300
 TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
+MULTI_SEG_MERGES = 256  # the multi-merge run on phase 12's no-dedup stream
+MULTI_PAIRS = 5  # runs of each trainer in phase 21's paired timing
 DIST_RANKS = 2  # the ranks of the two-rank phase, both on the one card
 DIST_TIMEOUT_S = 300  # the two-rank phase's process group and processes
 TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
@@ -1173,10 +1189,10 @@ def encode_path_cases(corpus: bytes, vocab8k, vocab64k) -> list:
     ]
 
 
-def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -> None:
+def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict):
     """Phases 11-13: the public API on the card. Adds each run's kernel
     launches to ``launches`` and the recount's compact_mask check to
-    ``rows``."""
+    ``rows``; returns phase 12's training result."""
     from gpu_bpe_tpu_torch import BPETokenizer, PreTokenizer, Tokenizer, Trainer, api
     from gpu_bpe_tpu_torch.core import BPEModel, GreedyTrieEncoder, read_dxft
     from gpu_bpe_tpu_torch.ops import kernels
@@ -1310,6 +1326,7 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -
             raise AssertionError(f"tokenize path {label} failed: {row}")
         for k, v in run_launches.items():
             launches[k] += v
+    return res12
 
 
 @contextmanager
@@ -1770,6 +1787,109 @@ def unicode_phase(torch, smi: str, launches: dict) -> None:
         raise AssertionError("the two Hangul modes gave the same merge list")
 
 
+# ─────────────────────────── the multi-merge iteration ───────────────────────────
+
+
+def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launches: dict, smi: str) -> None:
+    """Phase 21: ``Trainer(multi_merge=True)`` on the card. The main run on
+    phase 4's stream (its merge list and counts must equal phase 4's, the
+    merge and count_pairs2 kernels must launch, window_post must not);
+    ``api.train`` on phase 11's recipe with ``GPU_BPE_TPU_MULTI=1`` (the
+    16 MB record); ``force_recount`` for FORCE_MERGES merges (phase 4's
+    head); phase 12's no-dedup stream at 2^25 for MULTI_SEG_MERGES merges
+    (phase 12's head; segmented recounts and compact_mask on this path);
+    then the default and the multi-merge trainer in turns, MULTI_PAIRS runs
+    each. Adds the main run's and the 2^25 run's launches to ``launches``."""
+    from gpu_bpe_tpu_torch import Trainer, api
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops import train_step as ts
+
+    def reads(merges: int) -> dict:
+        return {"host_reads": dict(ts.HOST_READS), "host_reads_per_merge": sum(ts.HOST_READS.values()) / merges}
+
+    # ── the main run ──
+    kernels.LAUNCHES.clear()
+    ts.HOST_READS.clear()
+    res, _ = train(torch, Trainer, stream, MERGES, "cuda", multi_merge=True)
+    run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+    same = res.merges == main_res.merges and res.merge_counts == main_res.merge_counts
+    emit({"phase": "multi_merge", "merges": len(res.merges), "seconds": res.training_time_s,
+          "merges_per_s": len(res.merges) / res.training_time_s, "duals": res.duals, "recounts": res.recounts,
+          **reads(len(res.merges)), "launches": run,
+          "neutralised_merges": run["merge_compact_tracked"] - len(res.merges), "equal_to_main_path": same})
+    if not same or res.duals <= 0:
+        raise AssertionError(f"multi-merge run: equal to phase 4 {same}, duals {res.duals}")
+    if run["merge_compact_tracked"] <= 0 or run["count_pairs2"] <= 0 or run["window_post"]:
+        raise AssertionError(f"the multi-merge path must launch the merge and count_pairs2, not window_post: {run}")
+    for k in ("merge_compact_tracked", "count_pairs2"):
+        launches[k] += run[k]
+
+    # ── api.train with GPU_BPE_TPU_MULTI=1, phase 11's recipe ──
+    was = os.environ.get("GPU_BPE_TPU_MULTI")
+    os.environ["GPU_BPE_TPU_MULTI"] = "1"
+    try:
+        ts.HOST_READS.clear()
+        _, res_api = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, show_progress=False))
+        torch.cuda.synchronize()
+    finally:
+        if was is None:
+            del os.environ["GPU_BPE_TPU_MULTI"]
+        else:
+            os.environ["GPU_BPE_TPU_MULTI"] = was
+    record = json.loads((REPO / CERT16).read_text())["normal"]
+    got = sha_pair(res_api)
+    emit({"phase": "multi_merge_api_train", "bytes": len(corpus), "merges": len(res_api.merges),
+          "seconds": res_api.training_time_s, "merges_per_s": len(res_api.merges) / res_api.training_time_s,
+          "duals": res_api.duals, "recounts": res_api.recounts, **reads(len(res_api.merges)), **got,
+          "record": CERT16, "equal_to_record": got == {k: record[k] for k in got}})
+    if got != {k: record[k] for k in got} or res_api.duals <= 0:
+        raise AssertionError(f"api.train with GPU_BPE_TPU_MULTI=1 hashes {got} with {res_api.duals} duals, "
+                             f"the JAX package recorded {record}")
+
+    # ── force_recount, and the segmented recount at 2^25 ──
+    truth, _ = train(torch, Trainer, stream, FORCE_MERGES, "cuda", force_recount=True, multi_merge=True)
+    same_truth = (truth.merges == main_res.merges[:FORCE_MERGES]
+                  and truth.merge_counts == main_res.merge_counts[:FORCE_MERGES] and truth.duals == 0)
+    kernels.LAUNCHES.clear()
+    ts.RECOUNTS.clear()
+    seg, _ = train(torch, Trainer, api._byte_stream(corpus), MULTI_SEG_MERGES, "cuda", multi_merge=True)
+    seg_run = {k: kernels.LAUNCHES[k] for k in (*TRAIN_KERNELS, "compact_mask")}
+    tiers = dict(ts.RECOUNTS)
+    same_seg = (seg.merges == nodedup_res.merges[:MULTI_SEG_MERGES]
+                and seg.merge_counts == nodedup_res.merge_counts[:MULTI_SEG_MERGES])
+    emit({"phase": "multi_merge_checks", "force_recount_merges": len(truth.merges),
+          "force_recount_recounts": truth.recounts, "force_recount_equal": same_truth,
+          "nodedup_merges": len(seg.merges), "nodedup_seconds": seg.training_time_s,
+          "nodedup_merges_per_s": len(seg.merges) / seg.training_time_s, "nodedup_duals": seg.duals,
+          "nodedup_recounts_by_tier": tiers, "nodedup_launches": seg_run, "nodedup_equal": same_seg})
+    if not same_truth or not same_seg:
+        raise AssertionError(f"multi-merge: force_recount equal {same_truth}, 2^25 no-dedup equal {same_seg}")
+    if not any(k.startswith("seg") for k in tiers) or seg_run["compact_mask"] <= 0:
+        raise AssertionError(f"the segmented recount did not run on the multi-merge path: {tiers} {seg_run}")
+    for k in ("merge_compact_tracked", "count_pairs2", "compact_mask"):
+        launches[k] += seg_run[k]
+
+    # ── the paired timing: default and multi-merge in turns ──
+    times = {False: [], True: []}
+    per_merge = {False: [], True: []}
+    duals = 0
+    for i in range(2 * MULTI_PAIRS):
+        multi = (i % 4) in (1, 2)  # default, multi, multi, default, ...
+        ts.HOST_READS.clear()
+        r, _ = train(torch, Trainer, stream, MERGES, "cuda", multi_merge=multi)
+        if r.merges != main_res.merges:
+            raise AssertionError(f"paired run {i} (multi_merge={multi}) differs from phase 4")
+        times[multi].append(len(r.merges) / r.training_time_s)
+        per_merge[multi].append(sum(ts.HOST_READS.values()) / len(r.merges))
+        duals = r.duals if multi else duals
+    emit({"phase": "multi_merge_timing", "runs_each": MULTI_PAIRS, "merges": MERGES, "nvidia_smi": smi,
+          **{f"{label}_merges_per_s": {"median": statistics.median(times[m]), "min": min(times[m]),
+                                        "max": max(times[m]), "runs": times[m]}
+             for label, m in (("default", False), ("multi", True))},
+          "default_host_reads_per_merge": statistics.median(per_merge[False]),
+          "multi_host_reads_per_merge": statistics.median(per_merge[True]), "multi_duals": duals})
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -1934,7 +2054,7 @@ def main() -> int:
     rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, calls, torch.device("cuda")))
     del calls
 
-    api_phases(torch, corpus, vocabs, launches, rows)
+    nodedup = api_phases(torch, corpus, vocabs, launches, rows)
     launches[PROBE_LESS] = 0
     dist_phases(torch, corpus, stream, res.merges, launches)
 
@@ -1946,6 +2066,7 @@ def main() -> int:
     selftest_phase(torch, launches)
     rows[EXPLICIT_PROBES] = explicit_probe_row(torch, kernels, real, torch.device("cuda"))
     unicode_phase(torch, smi, launches)
+    multi_merge_phase(torch, corpus, stream, res, nodedup, launches, smi)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

@@ -22,6 +22,14 @@ merge to decide whether to go on (a second read only in the rare merge that
 affects more than ``N_PROBES`` window slots), and a segmented recount reads
 its summary count once to pick its tier.
 
+With ``multi_merge=True`` (the reference's ``GPU_BPE_TPU_MULTI``) the batch
+runs the classic iteration ``_one_merge`` instead: the winner, the second
+and the third candidate from the maintained window counts, an inline full
+recount when the certificate fails, and up to three merges that share one
+certificate decision and one host read (``_merge_and_track``: the window
+mode of ``merge_compact_tracked``, ``count_pairs2`` and torch ops, no
+``window_post``). The merge list is the same in either mode.
+
 There is no ``jit``: data-dependent loops are Python loops around kernel
 launches. Every tensor of ``TrainState`` lives on one device.
 """
@@ -30,16 +38,19 @@ from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..constants import BATCH_MERGES, TOKEN_MASK, WORD_START_BIT
 from .kernels import (
+    I32_MAX,
     INVALID,
     N_PROBES,
     W_SLOTS,
     _to_i32,
+    bin_index,
     compact_mask,
     count_pairs2,
     merge_compact,
@@ -55,6 +66,13 @@ assert K_CANDIDATES + S_CREATED == W_SLOTS
 _NO_EXCL = 0x10000  # 17-bit sentinel: matches no 16-bit token
 # Capacity below which the mid-batch collapse stop is disabled.
 _MIN_SHRINK_CAP = 4096
+
+# Host reads of the single-device loops by site: "batch" (one per batch),
+# "merge" (one per certified merge of the default loop), "iteration" (one
+# per multi-merge iteration), "wide" (the redo after a merge that affects
+# more than N_PROBES window slots), "seg_recount" (the segmented recount's
+# tier); the trainer adds "summary" per batch. clear() to reset.
+HOST_READS: Counter = Counter()
 
 
 @dataclass
@@ -75,7 +93,7 @@ class TrainState:
     ub_new: torch.Tensor  # ceiling on pairs created since the last recount
     recounts: torch.Tensor  # full recounts performed (diagnostics)
     fill: torch.Tensor  # next free created-pair scratch slot
-    duals: torch.Tensor  # multi-merge fires: always 0 here (kept for the summary)
+    duals: torch.Tensor  # second and third merges of a multi-merge iteration
     pend_pair: torch.Tensor  # next winner, computed by the previous window_post
     pend_count: torch.Tensor
     pend_cert: torch.Tensor  # 0 forces a full recount before the next merge
@@ -244,6 +262,7 @@ def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
         prim, (_to_i32(sp.reshape(-1)).to(torch.int32), flat_rt.to(torch.int32)),
     )
     cnt = int(total)
+    HOST_READS["seg_recount"] += 1
     for rcap, tier in ((cap >> 3, "seg_cap/8"), (cap >> 1, "seg_cap/2")):
         if cnt <= rcap:
             RECOUNTS[tier] += 1
@@ -312,6 +331,56 @@ def _gate(st: TrainState):
     return active, pair_eff, has_room
 
 
+def _affected(cand, counts, pair) -> torch.Tensor:
+    """Live window slots whose pair ends in a or starts with b, other than
+    (a,b) itself: the only counts merging (a,b) can change but its own."""
+    a, b = pair >> 16, pair & TOKEN_MASK
+    return (counts >= 0) & (((cand & TOKEN_MASK) == a) | ((cand >> 16) == b)) & (cand != pair)
+
+
+def _decision(cand, counts) -> torch.Tensor:
+    """(m, winner, m2, q, m3, r3, n_aff(winner)) of a window: the best,
+    second and third tracked candidates (count desc, pair asc) and the
+    number of slots merging the winner affects."""
+    m = counts.max()
+    winner = torch.where(counts == m, cand, INVALID).min()
+    c2 = torch.where(cand == winner, -1, counts)
+    m2 = c2.max()
+    q = torch.where(c2 == m2, cand, INVALID).min()
+    c3 = torch.where(cand == q, -1, c2)
+    m3 = c3.max()
+    r3 = torch.where(c3 == m3, cand, INVALID).min()
+    return torch.stack([m, winner, m2, q, m3, r3, _affected(cand, counts, winner).sum()])
+
+
+class _Plan(NamedTuple):
+    certified: bool
+    dual_pre: bool
+    triple_pre: bool
+
+
+def _plan(dec: list[int], theta: int, ub: int, nid: int, md: int, batch_merges: int) -> _Plan:
+    """The certificate of the winner and the preconditions of the dual and
+    triple merges (the reference's ``_one_merge``), on the host."""
+    m, w, m2, q, m3, r3 = dec[:6]
+    certified = m > theta and m > ub and m >= 2
+    first, second, third = {w >> 16, w & TOKEN_MASK}, {q >> 16, q & TOKEN_MASK}, {r3 >> 16, r3 & TOKEN_MASK}
+    dual_pre = (certified and not first & second and m2 >= 2 and m2 > theta and m2 > ub
+                and nid + 1 <= TOKEN_MASK and md + 2 <= batch_merges)
+    triple_pre = (dual_pre and not (first | second) & third and m3 >= 2 and m3 > theta and m3 > ub
+                  and nid + 2 <= TOKEN_MASK and md + 3 <= batch_merges)
+    return _Plan(certified, dual_pre, triple_pre)
+
+
+def _ub_from_bins(bins: torch.Tensor) -> torch.Tensor:
+    """Sound i32 ceiling per row of f32 bins: the max bin times (1 + 4e-3)
+    plus 4 in f32 (product and sum rounded separately), i32 max above 2e9
+    (the reference's ``_ub_from_bins``)."""
+    one = torch.ones((), dtype=torch.float32, device=bins.device)
+    mx = bins.max(dim=-1).values * (one * (1.0 + 4e-3)) + one * 4.0
+    return torch.where(mx > 2e9, I32_MAX, mx.to(torch.int64))
+
+
 def _sampled_pairs(st: TrainState, samp: torch.Tensor, has_room: torch.Tensor) -> dict:
     """The two sampled created pairs of a merge: their window_post flags and
     tokens, and their slots for ``count_pairs2`` (sentinel pair 1 when not
@@ -364,6 +433,7 @@ def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
             st.cand, counts_sel, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
         )
         host[:8] = sout.tolist()
+        HOST_READS["wide"] += 1
     pend_cert = sout[5]
     if force_recount:  # ground truth: never carry a certificate
         pend_cert = torch.zeros_like(pend_cert)
@@ -376,24 +446,186 @@ def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
     return st, host
 
 
+def _merge_and_track(st: TrainState, pair, count, row: int, active=None):
+    """Apply one merge ``pair`` -> ``next_id`` and keep the window: the
+    reference's ``_merge_and_track`` on its Pallas branch (the stream is
+    compacted after every merge, so no hole chain).
+
+    ``merge_compact_tracked`` in window mode derives the affected slots
+    from the window and counts them exactly on the post-merge stream;
+    ``count_pairs2`` counts the two sampled created pairs. Each affected
+    slot takes its probe count by rank (the kernel's probe list is the
+    affected slots in window order); a merge that affects more than
+    ``N_PROBES`` slots keeps its old counts here, and the caller recounts
+    the window densely (``_post_counts``) before anyone reads them. Each
+    sampled pair's exact count leaves its f32 bin, the ceiling of the
+    merge's other created pairs follows ``_ub_from_bins``, the two sampled
+    pairs take the next scratch slots and the merge writes log row ``row``
+    (a host int).
+
+    ``active`` (a device bool, or None for always) neutralises the merge:
+    pair 0 merges nothing and every change of the state is gated off (the
+    log row past ``merges_done`` is never read). Returns ``(state,
+    ceilings, n_aff)``: ``ceilings`` = (ub_merge, c_l, c_r), what a later
+    merge of the iteration must beat, and ``n_aff`` the affected slots."""
+    has_room = st.fill <= W_SLOTS - 2
+    if active is not None:
+        pair = torch.where(active, pair, 0)
+        has_room = has_room & active
+    sym2, w2, n2, bins_l, bins_r, samp, pcnt, _probes, n_aff = merge_compact_tracked(
+        st.symbols, st.weights, st.n, pair, st.next_id, st.cand, st.cand_counts,
+    )
+    sp = _sampled_pairs(st, samp, has_room)
+    slots = torch.stack([sp["l_slot"], sp["r_slot"]])
+    c_lr = count_pairs2(sym2, w2, n2, slots[0], slots[1])
+
+    cand, counts = st.cand, st.cand_counts
+    affected = _affected(cand, counts, pair)
+    rank = (torch.cumsum(affected, 0) - 1).clamp_(0, N_PROBES - 1)
+    counts2 = torch.where(affected & (n_aff <= N_PROBES), pcnt[rank], counts)
+    counts2 = torch.where((counts >= 0) & (cand == pair), 0, counts2)
+
+    # the bins hold every created pair's mass: take each sampled pair's
+    # exact count out of its bin (its whole mass lies there)
+    bins = torch.stack([bins_l.reshape(-1), bins_r.reshape(-1)])
+    rows = torch.arange(2, device=bins.device)
+    bins[rows, bin_index(torch.stack([sp["l_tok"], sp["r_tok"]]))] -= c_lr.to(torch.float32)
+    ub_merge = _ub_from_bins(bins).max()
+
+    ok = torch.stack([sp["l_ok"], sp["r_ok"]])
+    at = torch.where(has_room, st.fill, W_SLOTS - 2) + rows
+    cand2, counts3 = cand.clone(), counts2.clone()
+    cand2[at] = torch.where(has_room, torch.where(ok, slots, INVALID), cand[at])
+    counts3[at] = torch.where(has_room, torch.where(ok, c_lr, -1), counts2[at])
+    st.merge_log[3 * row : 3 * row + 3] = torch.stack([pair, st.next_id, count & 0xFFFFFFFF])
+    adv = 1 if active is None else active.to(torch.int64)
+    if active is not None:  # a no-op pass adds nothing to the running ceiling
+        ub_merge = torch.where(active, ub_merge, 0)
+    st = replace(
+        st, symbols=sym2, weights=w2, n=n2, next_id=st.next_id + adv, merges_done=st.merges_done + adv,
+        cand=cand2, cand_counts=counts3, ub_new=torch.maximum(st.ub_new, ub_merge),
+        fill=torch.where(has_room, st.fill + 2, st.fill),
+    )
+    return st, (ub_merge, c_lr[0], c_lr[1]), n_aff
+
+
+def _one_merge(st: TrainState, dec: torch.Tensor, plan: _Plan, md: int) -> tuple[TrainState, torch.Tensor]:
+    """One multi-merge iteration (the reference's ``_one_merge``): the
+    winner of ``dec`` (the window's device ``_decision``) when ``plan``
+    certifies it, else the winner of an inline full recount; then up to
+    two more merges from the same decision. ``md`` is the batch's merge
+    count (the log row of the first merge).
+
+    Dual: the second candidate q, member-disjoint from the winner and
+    strictly above theta and ub_new (``plan.dual_pre``, decided on the
+    host), merges when its count m2 also strictly beats the first merge's
+    created-pair ceiling and the exact counts of its two sampled pairs.
+    Triple: the third candidate, disjoint from both, must beat both merges'
+    ceilings. Those last comparisons are made on the device: the second
+    (third) merge runs neutralised when they fail, so the iteration needs
+    no host read between its merges. The proof that this is the serial
+    argmax sequence is the reference's ``_one_merge`` docstring.
+
+    Returns ``(state, n_aff)``: the largest affected-slot count of the
+    iteration's merges (neutralised ones affect none)."""
+    if plan.certified:
+        pair, count, active = dec[1], dec[0], None
+    else:
+        bp, bc, cand, counts, theta = _full_recount_impl(st.symbols, st.weights, st.n)
+        dev = st.n.device
+        st = replace(st, cand=cand, cand_counts=counts, theta=theta, ub_new=_i64(0, dev),
+                     fill=_i64(K_CANDIDATES, dev), recounts=st.recounts + 1)
+        pair, count = bp, bc
+        # neutralised stop: count < 2 or the ids ran out
+        active = (bc >= 2) & (st.next_id <= TOKEN_MASK)
+        st = replace(st, early_stop=st.early_stop | ~active)
+    st, ceilings, n_aff = _merge_and_track(st, pair, count, md, active)
+    if not plan.dual_pre:
+        return st, n_aff
+    m2 = dec[2]
+    dual = (m2 > ceilings[0]) & (m2 > ceilings[1]) & (m2 > ceilings[2])
+    st, ceilings2, n_aff2 = _merge_and_track(st, dec[3], m2, md + 1, dual)
+    n_aff = torch.maximum(n_aff, n_aff2)
+    if not plan.triple_pre:
+        return st, n_aff
+    m3 = dec[4]
+    triple = dual
+    for c in (*ceilings, *ceilings2):
+        triple = triple & (m3 > c)
+    st, _, n_aff3 = _merge_and_track(st, dec[5], m3, md + 2, triple)
+    return st, torch.maximum(n_aff, n_aff3)
+
+
+def _multi_batch(st: TrainState, batch_merges: int, recount_budget: int | None, force_recount: bool) -> TrainState:
+    """``train_batch`` with multi-merge iterations: one host read per
+    iteration (the merges done, the stop, the window's next decision and
+    its ceilings), a second one after a merge that affected more than
+    ``N_PROBES`` slots, whose window is then recounted densely on the
+    iteration's final stream (every merged pair counts 0 there, and every
+    other live slot's exact count is what the sparse updates would have
+    kept). With ``force_recount`` no iteration is certified."""
+
+    def read(st, n_aff):
+        """The window's device decision and, on the host, [merges_done,
+        early_stop, n, recounts, theta, ub_new, next_id, n_aff, *decision]."""
+        dec = _decision(st.cand, st.cand_counts)
+        head = torch.stack([st.merges_done, st.early_stop, st.n, st.recounts, st.theta, st.ub_new, st.next_id,
+                            n_aff])
+        return dec, torch.cat([head, dec]).tolist()
+
+    cap = st.symbols.shape[0]
+    dec, h = read(st, torch.zeros_like(st.n))
+    HOST_READS["batch"] += 1
+    recounts0 = h[3]
+    md = duals = 0
+    while True:
+        early, n, recounts, theta, ub, nid = bool(h[1]), h[2], h[3], h[4], h[5], h[6]
+        if md >= batch_merges or early or (cap > _MIN_SHRINK_CAP and n + 32 <= cap // 2 and md > 0):
+            break
+        if recount_budget is not None and recounts - recounts0 >= recount_budget:
+            break
+        plan = _Plan(False, False, False) if force_recount else _plan(h[8:], theta, ub, nid, md, batch_merges)
+        if plan.certified and nid > TOKEN_MASK:  # the ids ran out: the reference's neutralised stop
+            st = replace(st, early_stop=torch.ones_like(st.early_stop))
+            break
+        st, n_aff = _one_merge(st, dec, plan, md)
+        dec, h = read(st, n_aff)
+        HOST_READS["iteration"] += 1
+        if h[7] > N_PROBES:
+            # rare wide merge: nothing was probed; recount the whole window
+            one = torch.ones_like(st.n)
+            counts, _, _ = _post_counts(st.cand, st.cand_counts, one, one, one, st.symbols, st.weights, st.n)
+            st = replace(st, cand_counts=counts)
+            dec, h = read(st, n_aff)
+            HOST_READS["wide"] += 1
+        duals += max(h[0] - md - 1, 0)
+        md = h[0]
+    return replace(st, duals=st.duals + duals)
+
+
 def train_batch(
     st: TrainState, batch_merges: int, recount_budget: int | None = None,
-    force_recount: bool = False,
+    force_recount: bool = False, multi_merge: bool = False,
 ) -> TrainState:
     """Run up to ``batch_merges`` merges with early stopping.
 
     Nested loops as in the reference: the outer loop recounts when the
     certificate failed (or always, with ``force_recount``), the inner loop
-    runs certified merges. Collapse stop: when the live count falls below
-    half the capacity the batch returns early so the host can shrink onto
-    the next power-of-two rung. ``recount_budget`` caps the full recounts
-    of one batch (the merge list is invariant: it only moves batch ends).
+    runs certified merges; with ``multi_merge`` one loop of multi-merge
+    iterations instead (``_one_merge``). Collapse stop: when the live count
+    falls below half the capacity the batch returns early so the host can
+    shrink onto the next power-of-two rung. ``recount_budget`` caps the
+    full recounts of one batch (the merge list is invariant: it only moves
+    batch ends).
     """
     dev = st.n.device
     st = replace(st, merges_done=_i64(0, dev))
+    if multi_merge:
+        return _multi_batch(st, batch_merges, recount_budget, force_recount)
     cap = st.symbols.shape[0]
     early, n, cert, recounts = (bool(x) if i in (0, 2) else int(x) for i, x in enumerate(
         torch.stack([st.early_stop, st.n, st.pend_cert, st.recounts]).tolist()))
+    HOST_READS["batch"] += 1
     recounts0 = recounts
     md = 0
 
@@ -409,6 +641,7 @@ def train_batch(
             cert = True
         while go() and cert:
             st, host = _one_merge_fused_certified(st, force_recount)
+            HOST_READS["merge"] += 1
             md, early, cert, n = host[0], bool(host[2]), bool(host[5]), host[8]
     return st
 

@@ -21,23 +21,25 @@ from ..constants import BATCH_MERGES, TOKEN_MASK
 from ..core.trainer_ref import ProgressFn, TrainingResult
 from ..core.vocab import Vocab
 from .ingest import SymbolStream, make_stream, pad_stream
-from .train_step import _pack_summary, init_state, train_batch
+from .train_step import HOST_READS, _pack_summary, init_state, train_batch
 
 logger = logging.getLogger(__name__)
 
 _MIN_CAP = 2048
 
-# Recount budget per batch: the reference package's rule. The cost per
-# capacity element is the largest of the recount's measured on an NVIDIA
-# H100 80GB HBM3 at 700 W (chip_smoke.py's recount_timing): 4.06 ns with the
-# monolithic sort at 2^20, 3.78 at 2^21, then segmented 1.15 at 2^22 down
-# to 0.78 at 2^25. The budget only moves batch ends, never a merge.
+# Recount budget per batch: the reference package's rule, with its target
+# seconds per batch read from GPU_BPE_TPU_DISPATCH_TARGET_S at each batch.
+# The cost per capacity element is the largest of the recount's measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's recount_timing): 4.06
+# ns with the monolithic sort at 2^20, 3.78 at 2^21, then segmented 1.15 at
+# 2^22 down to 0.78 at 2^25. The budget only moves batch ends, never a merge.
 _DISPATCH_TARGET_S = 12.0
 _RECOUNT_S_PER_ELEM = 4.1e-9
 
 
 def _recount_budget(cap: int) -> int:
-    return max(4, int(_DISPATCH_TARGET_S / (_RECOUNT_S_PER_ELEM * max(cap, 1))))
+    target = float(os.environ.get("GPU_BPE_TPU_DISPATCH_TARGET_S", _DISPATCH_TARGET_S))
+    return max(4, int(target / (_RECOUNT_S_PER_ELEM * max(cap, 1))))
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -55,7 +57,11 @@ class Trainer:
     """Device-resident BPE trainer with batched merge loops.
 
     ``force_recount=True`` recounts before every merge (the ground truth
-    that the certified window must reproduce bit for bit)."""
+    that the certified window must reproduce bit for bit).
+    ``multi_merge=True`` runs the multi-merge iteration (up to three merges
+    per certificate decision, ``train_step._one_merge``); ``None`` takes it
+    from ``GPU_BPE_TPU_MULTI``, read here, as the reference package does.
+    The merge list is the same either way."""
 
     def __init__(
         self,
@@ -63,11 +69,13 @@ class Trainer:
         batch_merges: int = BATCH_MERGES,
         device: str | torch.device = "cuda",
         force_recount: bool = False,
+        multi_merge: bool | None = None,
     ):
         self.vocab = vocab or Vocab()
         self.batch_merges = min(batch_merges, BATCH_MERGES)
         self.device = resolve_device(device)
         self.force_recount = force_recount
+        self.multi_merge = bool(os.environ.get("GPU_BPE_TPU_MULTI")) if multi_merge is None else multi_merge
 
     def train_stream(
         self,
@@ -134,8 +142,9 @@ class Trainer:
         while total_done < merges_needed and not early_stop:
             batch = min(self.batch_merges, merges_needed - total_done)
             cap = state.symbols.shape[0]
-            state = train_batch(state, batch, _recount_budget(cap), self.force_recount)
+            state = train_batch(state, batch, _recount_budget(cap), self.force_recount, self.multi_merge)
             packed = _pack_summary(state).cpu().numpy()  # the batch's one log read
+            HOST_READS["summary"] += 1
             log = packed[: BATCH_MERGES * 3].reshape(BATCH_MERGES, 3)
             duals_total, merges_done, n_now, early, recounts_total = (int(x) for x in packed[-5:])
             early_stop = bool(early)

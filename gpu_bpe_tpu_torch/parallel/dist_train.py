@@ -49,14 +49,24 @@ from __future__ import annotations
 
 from collections import Counter
 from dataclasses import dataclass, replace
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..constants import BATCH_MERGES, TOKEN_MASK, WORD_START_BIT
 from ..ops.kernels import INVALID, I32_MAX, _to_i32, bin_index, merge_compact_tracked
-from ..ops.train_step import K_CANDIDATES, S_CREATED, _NO_EXCL, _pair_ids, _pick_window, _run_totals
+from ..ops.train_step import (
+    K_CANDIDATES,
+    S_CREATED,
+    _NO_EXCL,
+    _affected,
+    _decision,
+    _pair_ids,
+    _pick_window,
+    _plan,
+    _run_totals,
+    _ub_from_bins,
+)
 from .mesh import DataGroup
 
 N_SLOTS = K_CANDIDATES + S_CREATED
@@ -175,48 +185,6 @@ def _stream_pairs(symbols, weights, n):
     return pair, torch.where(valid, weights.to(torch.int64), 0)
 
 
-def _affected(cand, counts, pair) -> torch.Tensor:
-    """Live window slots whose pair ends in a or starts with b, other than
-    (a,b) itself: the only counts merging (a,b) can change but its own."""
-    a, b = pair >> 16, pair & TOKEN_MASK
-    return (counts >= 0) & (((cand & TOKEN_MASK) == a) | ((cand >> 16) == b)) & (cand != pair)
-
-
-def _decision(cand, counts) -> torch.Tensor:
-    """(m, winner, m2, q, m3, r3, n_aff(winner)) of a window: the best,
-    second and third tracked candidates (count desc, pair asc) and the
-    number of slots merging the winner affects. Replicated when the window
-    is."""
-    m = counts.max()
-    winner = torch.where(counts == m, cand, INVALID).min()
-    c2 = torch.where(cand == winner, -1, counts)
-    m2 = c2.max()
-    q = torch.where(c2 == m2, cand, INVALID).min()
-    c3 = torch.where(cand == q, -1, c2)
-    m3 = c3.max()
-    r3 = torch.where(c3 == m3, cand, INVALID).min()
-    return torch.stack([m, winner, m2, q, m3, r3, _affected(cand, counts, winner).sum()])
-
-
-class _Plan(NamedTuple):
-    certified: bool
-    dual_pre: bool
-    triple_pre: bool
-
-
-def _plan(dec: list[int], theta: int, ub: int, nid: int, md: int, batch_merges: int) -> _Plan:
-    """The certificate of the winner and the preconditions of the dual and
-    triple merges (the reference's ``one_merge``), on the host."""
-    m, w, m2, q, m3, r3 = dec[:6]
-    certified = m > theta and m > ub and m >= 2
-    first, second, third = {w >> 16, w & TOKEN_MASK}, {q >> 16, q & TOKEN_MASK}, {r3 >> 16, r3 & TOKEN_MASK}
-    dual_pre = (certified and not first & second and m2 >= 2 and m2 > theta and m2 > ub
-                and nid + 1 <= TOKEN_MASK and md + 2 <= batch_merges)
-    triple_pre = (dual_pre and not (first | second) & third and m3 >= 2 and m3 > theta and m3 > ub
-                  and nid + 2 <= TOKEN_MASK and md + 3 <= batch_merges)
-    return _Plan(certified, dual_pre, triple_pre)
-
-
 def _full_recount(g: DataGroup, st: DistState):
     """Exact global recount: a fresh window, theta and the winner. Returns
     ``(state, best_pair, count, host)`` with ``host`` = [count, n_aff of
@@ -265,15 +233,6 @@ def _full_recount(g: DataGroup, st: DistState):
     st = replace(st, cand=cand, cand_counts=counts, theta=theta, ub_new=_i64(0, dev),
                  fill=_i64(K_CANDIDATES, dev), recounts=st.recounts + 1)
     return st, best, count, host
-
-
-def _ub_from_bins(bins: torch.Tensor) -> torch.Tensor:
-    """Sound i32 ceiling per row of f32 bins: the max bin times (1 + 4e-3)
-    plus 4 in f32 (product and sum rounded separately), i32 max above 2e9
-    (the reference's ``_ub_from_bins``, ``train_step.py:305-319``)."""
-    one = torch.ones((), dtype=torch.float32, device=bins.device)
-    mx = bins.max(dim=-1).values * (one * (1.0 + 4e-3)) + one * 4.0
-    return torch.where(mx > 2e9, I32_MAX, mx.to(torch.int64))
 
 
 def _merge_and_track(g: DataGroup, st: DistState, pair, count, n_aff: int, md: int, follow=None):

@@ -1,6 +1,6 @@
 """Where the time of the port's main path goes on one CUDA card.
 
-    python scripts/torch_profile_train.py [--mb 16] [--merges 1024] [--nodedup | --dist]
+    python scripts/torch_profile_train.py [--mb 16] [--merges 1024] [--nodedup | --dist] [--multi]
 
 Trains ``gpu_bpe_tpu_torch.Trainer(device="cuda")`` on chip_smoke.py's
 synthetic corpus (bench.py's 16 MB Zipfian text, seed 0) once untraced (for
@@ -10,7 +10,9 @@ stream is the byte-heuristic dedup stream, or with ``--nodedup`` the one
 2^25 at 16 MB, where the recount runs segmented). ``--dist`` trains the
 dedup stream with the data-parallel ``DistributedTrainer`` in a one-rank
 NCCL group instead, and adds its collectives and host reads by site to
-``host_reads``:
+``host_reads``. ``--multi`` trains with ``Trainer(multi_merge=True)`` (the
+multi-merge iteration) and adds ``duals``; the single-device runs add their
+host reads by site (``train_step.HOST_READS``) to ``host_reads``:
 
 * ``run``: merges, recounts, wall seconds and merges/s of the untraced run;
 * ``device``: device busy time (sum of kernel and copy times on the card)
@@ -45,7 +47,10 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--nodedup", action="store_true")
     mode.add_argument("--dist", action="store_true")
+    ap.add_argument("--multi", action="store_true")
     args = ap.parse_args()
+    if args.multi and args.dist:
+        ap.error("--multi is the single-device trainer's mode")
     if not torch.cuda.is_available():
         print("no CUDA device available", file=sys.stderr)
         return 2
@@ -72,7 +77,7 @@ def main() -> int:
             group = stack.enter_context(one_rank_group("cuda"))
             make = lambda: DistributedTrainer(group)  # noqa: E731
         else:
-            make = lambda: Trainer(device="cuda")  # noqa: E731
+            make = lambda: Trainer(device="cuda", multi_merge=args.multi)  # noqa: E731
         make().train_stream(stream, target_vocab_size=256 + 64)  # warm-up
         res = make().train_stream(stream, target_vocab_size=target)
         print(json.dumps({"phase": "run", "merges": len(res.merges), "recounts": res.recounts,
@@ -81,6 +86,7 @@ def main() -> int:
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ts.RECOUNTS.clear()
+        ts.HOST_READS.clear()
         if args.dist:
             dist_train.HOST_READS.clear()
         with torch.profiler.profile(activities=acts) as prof, counted_collectives() as coll:
@@ -88,7 +94,10 @@ def main() -> int:
             traced = make().train_stream(stream, target_vocab_size=target)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        extra = {"collectives": dict(coll), "host_reads_by_site": dict(dist_train.HOST_READS)} if args.dist else {}
+        reads = dist_train.HOST_READS if args.dist else ts.HOST_READS
+        extra = {"host_reads_by_site": dict(reads), "duals": traced.duals}
+        if args.dist:
+            extra["collectives"] = dict(coll)
     by_kernel = {}
     dtoh = 0
     for ev in prof.events():

@@ -1,6 +1,6 @@
 """Certificate soundness of the port at scale (CLAUDE.md invariant 4).
 
-    python scripts/torch_validate_certificate.py [--mb 64] [--merges 8192] [--device cuda]
+    python scripts/torch_validate_certificate.py [--mb 64] [--merges 8192] [--device cuda] [--multi] [--out FILE]
 
 The JAX package's recipe (``scripts/validate_certificate.py``) on the port:
 chip_smoke.py's synthetic Zipfian corpus (bench.py's, seed 0) cut to
@@ -21,6 +21,11 @@ record for the same corpus size and merges
 (``docs/artifacts/certificate_validation*.json``) where there is one; the
 script exits non-zero otherwise. The parent builds the stream once and
 hands it to the runs in a temporary ``.npz``.
+
+``--multi`` runs all three with ``Trainer(multi_merge=True)`` (the
+multi-merge iteration; the ``force_recount`` run then never merges twice
+per iteration). ``--out FILE`` also writes the result, with the card's
+``nvidia-smi`` name and power limit, as one JSON object.
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ def permuted(symbols: np.ndarray, weights: np.ndarray):
     return symbols[order].copy(), weights[order].copy()
 
 
-def child(run: str, stream_path: str, merges: int, device: str) -> int:
+def child(run: str, stream_path: str, merges: int, device: str, multi: bool) -> int:
     from gpu_bpe_tpu_torch import Trainer
     from gpu_bpe_tpu_torch.convert import stream_from_numpy
 
@@ -75,11 +80,11 @@ def child(run: str, stream_path: str, merges: int, device: str) -> int:
     if run == "permuted":
         sym, w = permuted(sym, w)
     stream = stream_from_numpy(sym, w, len(sym), int(z["total_bytes"]))
-    r = Trainer(device=device, force_recount=run == "force_recount").train_stream(
+    r = Trainer(device=device, force_recount=run == "force_recount", multi_merge=multi).train_stream(
         stream, target_vocab_size=256 + merges)
-    print(json.dumps({"run": run, "stream_n": stream.n, "merges": len(r.merges), "recounts": r.recounts,
-                      "seconds": r.training_time_s, "merges_per_s": len(r.merges) / r.training_time_s,
-                      **hashes(r)}), flush=True)
+    print(json.dumps({"run": run, "multi_merge": multi, "stream_n": stream.n, "merges": len(r.merges),
+                      "recounts": r.recounts, "duals": r.duals, "seconds": r.training_time_s,
+                      "merges_per_s": len(r.merges) / r.training_time_s, **hashes(r)}), flush=True)
     return 0
 
 
@@ -90,6 +95,8 @@ def main() -> int:
     ap.add_argument("--mb", type=int, default=64)
     ap.add_argument("--merges", type=int, default=8192)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--multi", action="store_true", help="train with the multi-merge iteration")
+    ap.add_argument("--out", help="also write the result as JSON to this file")
     ap.add_argument("--child", choices=RUNS, help=argparse.SUPPRESS)
     ap.add_argument("--stream", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -97,16 +104,18 @@ def main() -> int:
         print("no CUDA device available", file=sys.stderr)
         return 2
     if args.child:
-        return child(args.child, args.stream, args.merges, args.device)
+        return child(args.child, args.stream, args.merges, args.device, args.multi)
 
     from chip_smoke import synth_corpus
     from gpu_bpe_tpu_torch.ops.ingest import make_stream
     from gpu_bpe_tpu_torch.pretok import PreTokenizer
     from gpu_bpe_tpu_torch.unicode import backend_name
 
+    smi = None
     if args.device == "cuda":
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        print(smi, flush=True)
     corpus = synth_corpus(args.mb << 20, seed=0)
     pretok = PreTokenizer()  # builds the native decoder, outside the clock
     t0 = time.perf_counter()
@@ -123,7 +132,8 @@ def main() -> int:
                  total_bytes=stream.total_bytes)
         for run in RUNS:
             p = subprocess.run([sys.executable, __file__, "--child", run, "--stream", path,
-                                "--merges", str(args.merges), "--device", args.device],
+                                "--merges", str(args.merges), "--device", args.device]
+                               + (["--multi"] if args.multi else []),
                                capture_output=True, text=True)
             if p.returncode != 0:
                 print(p.stderr[-3000:], file=sys.stderr)
@@ -134,8 +144,14 @@ def main() -> int:
     same = all(all(r[k] == results["certified"][k] for k in keys) for r in results.values())
     matches = want is None or all(results["certified"][k] == want[k] for k in keys[1:])
     ok = same and matches and results["certified"]["merges"] == args.merges
-    print(json.dumps({"equal": same, "recorded": want, "equal_to_recorded": matches if want else None,
-                      "merges": results["certified"]["merges"], "ok": ok}))
+    summary = {"equal": same, "recorded": want, "equal_to_recorded": matches if want else None,
+               "merges": results["certified"]["merges"], "ok": ok}
+    print(json.dumps(summary))
+    if args.out:
+        Path(args.out).write_text(json.dumps({
+            "script": "scripts/torch_validate_certificate.py", "device": args.device, "nvidia_smi": smi,
+            "corpus_mb": args.mb, "merges": args.merges, "multi_merge": args.multi, "stream_n": stream.n,
+            "runs": results, **summary}, indent=1) + "\n")
     return 0 if ok else 1
 
 
