@@ -160,12 +160,29 @@ Phases, each printing one JSON line:
    phase 12's first 256, with segmented recounts and compact_mask; then
    the default and the multi-merge trainer in turns on phase 4's stream,
    five runs each: merges/s medians, extremes and host reads per merge,
-   with the card's name and power limit.
+   with the card's name and power limit;
+22. force_recount_env: `api.train` on phase 11's recipe for 256 merges
+   with `GPU_BPE_TPU_FORCE_RECOUNT=1` set in this process, in the default
+   loop and with `GPU_BPE_TPU_MULTI=1`: each merge list and its counts
+   must equal phase 11's first 256, with one recount per merge and no
+   dual; the variables are restored afterwards;
+23. tokenize_devices: the tokenizer's default device list
+   (`ops.tokenize.pass_devices`) must be every visible card, `[cuda:0]`
+   with `GPU_BPE_TPU_TOKENIZE_ALL_DEVICES=0` and every card with `=1`;
+   `api.encode_bulk` of phase 11's model through a fresh `BPETokenizer` on
+   the 16 MB corpus must equal phase 13's ids; a `Tokenizer` with
+   `devices=["cuda:0", "cuda:0"]` and 1 MB passes must equal phase 8's
+   one-pass ids at the 8K vocab;
+24. soak: a fixed slice of `scripts/torch_soak_fuzz.py` on the card,
+   tokenizer seeds 1000-1063 and trainer seeds 1,001,000-1,001,031 (eight
+   on each trainer loop): no trial may fail, and every kernel, both modes
+   of the merge included, must launch; trial counts by kind, seconds,
+   trials per second and launches.
 
 The launch counts of the kernels' line are the sums over the main-path
-runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, and phase
-21's main and 2^25 runs), each counted from 0; the explicit-probe mode
-runs on the selftest's path only.
+runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
+21's main and 2^25 runs, and phases 22-24), each counted from 0; the
+explicit-probe mode runs on the selftest's path only.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -233,6 +250,11 @@ MULTI_PAIRS = 5  # runs of each trainer in phase 21's paired timing
 DIST_RANKS = 2  # the ranks of the two-rank phase, both on the one card
 DIST_TIMEOUT_S = 300  # the two-rank phase's process group and processes
 TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
+DEVICES_PASS_BYTES = 1 << 20  # phase 23's passes over the 16 MB corpus, two entries in the device list
+SOAK_SCRIPT = "scripts/torch_soak_fuzz.py"
+SOAK_SEED0 = 1000  # phase 24: tokenizer seeds SOAK_SEED0.., trainer seeds 1,000,000 above them
+SOAK_TOKENIZER_SEEDS = 64
+SOAK_TRAINER_SEEDS = 32  # eight on each of the four trainer loops
 
 
 def emit(obj) -> None:
@@ -1189,10 +1211,11 @@ def encode_path_cases(corpus: bytes, vocab8k, vocab64k) -> list:
     ]
 
 
-def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict):
+def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -> dict:
     """Phases 11-13: the public API on the card. Adds each run's kernel
     launches to ``launches`` and the recount's compact_mask check to
-    ``rows``; returns phase 12's training result."""
+    ``rows``; returns phase 11's training result and tokenizer, phase 12's
+    training result and phase 13's ids."""
     from gpu_bpe_tpu_torch import BPETokenizer, PreTokenizer, Tokenizer, Trainer, api
     from gpu_bpe_tpu_torch.core import BPEModel, GreedyTrieEncoder, read_dxft
     from gpu_bpe_tpu_torch.ops import kernels
@@ -1326,7 +1349,7 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict):
             raise AssertionError(f"tokenize path {label} failed: {row}")
         for k, v in run_launches.items():
             launches[k] += v
-    return res12
+    return {"train": res11, "tokenizer": tok11, "nodedup": res12, "ids": ids13}
 
 
 @contextmanager
@@ -1790,6 +1813,22 @@ def unicode_phase(torch, smi: str, launches: dict) -> None:
 # ─────────────────────────── the multi-merge iteration ───────────────────────────
 
 
+@contextmanager
+def environ(**values):
+    """The block runs with ``values`` set in ``os.environ``; each variable is
+    restored afterwards, or removed if it was not set."""
+    was = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in was.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launches: dict, smi: str) -> None:
     """Phase 21: ``Trainer(multi_merge=True)`` on the card. The main run on
     phase 4's stream (its merge list and counts must equal phase 4's, the
@@ -1825,17 +1864,10 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
         launches[k] += run[k]
 
     # ── api.train with GPU_BPE_TPU_MULTI=1, phase 11's recipe ──
-    was = os.environ.get("GPU_BPE_TPU_MULTI")
-    os.environ["GPU_BPE_TPU_MULTI"] = "1"
-    try:
+    with environ(GPU_BPE_TPU_MULTI="1"):
         ts.HOST_READS.clear()
         _, res_api = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, show_progress=False))
         torch.cuda.synchronize()
-    finally:
-        if was is None:
-            del os.environ["GPU_BPE_TPU_MULTI"]
-        else:
-            os.environ["GPU_BPE_TPU_MULTI"] = was
     record = json.loads((REPO / CERT16).read_text())["normal"]
     got = sha_pair(res_api)
     emit({"phase": "multi_merge_api_train", "bytes": len(corpus), "merges": len(res_api.merges),
@@ -1888,6 +1920,104 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
              for label, m in (("default", False), ("multi", True))},
           "default_host_reads_per_merge": statistics.median(per_merge[False]),
           "multi_host_reads_per_merge": statistics.median(per_merge[True]), "multi_duals": duals})
+
+
+def force_recount_env_phase(torch, corpus: bytes, api_res, launches: dict) -> None:
+    """Phase 22: ``api.train`` on phase 11's recipe for FORCE_MERGES merges
+    with ``GPU_BPE_TPU_FORCE_RECOUNT=1`` set in this process, in the
+    default loop and with ``GPU_BPE_TPU_MULTI=1``: each merge list and its
+    counts must equal phase 11's first FORCE_MERGES, with one recount per
+    merge and no dual. Adds both runs' launches to ``launches``."""
+    from gpu_bpe_tpu_torch import api
+    from gpu_bpe_tpu_torch.ops import kernels
+
+    want_m, want_c = api_res.merges[:FORCE_MERGES], api_res.merge_counts[:FORCE_MERGES]
+    for label, extra in (("default", {}), ("multi_merge", {"GPU_BPE_TPU_MULTI": "1"})):
+        kernels.LAUNCHES.clear()
+        with environ(GPU_BPE_TPU_FORCE_RECOUNT="1", **extra):
+            t0 = time.perf_counter()
+            _, r = api.train(corpus, api.TrainConfig(vocab_size=256 + FORCE_MERGES, show_progress=False))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+        checks = {"equal_to_api_train": r.merges == want_m and r.merge_counts == want_c,
+                  "recount_per_merge": r.recounts == len(r.merges) == FORCE_MERGES, "no_duals": r.duals == 0}
+        emit({"phase": "force_recount_env", "loop": label, "bytes": len(corpus), "merges": len(r.merges),
+              "recounts": r.recounts, "duals": r.duals, "seconds": secs, "training_seconds": r.training_time_s,
+              "merges_per_s": len(r.merges) / r.training_time_s, "launches": run, **checks})
+        if not all(checks.values()) or run["merge_compact_tracked"] <= 0:
+            raise AssertionError(f"GPU_BPE_TPU_FORCE_RECOUNT=1 ({label}): {checks}, launches {run}")
+        for k, v in run.items():
+            launches[k] += v
+
+
+def tokenize_devices_phase(torch, corpus: bytes, api_out: dict, vocab8k, ids8k, launches: dict) -> None:
+    """Phase 23: the tokenizer's default device list is every visible card,
+    ``GPU_BPE_TPU_TOKENIZE_ALL_DEVICES`` overriding it; ``api.encode_bulk``
+    of a fresh tokenizer of phase 11's model on the 16 MB corpus equals
+    phase 13's ids; a ``Tokenizer`` with ``devices=["cuda:0", "cuda:0"]`` and
+    passes of DEVICES_PASS_BYTES equals phase 8's one-pass ids at the 8K
+    vocab. Adds both runs' launches to ``launches``."""
+    from gpu_bpe_tpu_torch import BPETokenizer, Tokenizer, api
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops.tokenize import pass_devices
+
+    dev0 = torch.device("cuda", 0)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    with environ(GPU_BPE_TPU_TOKENIZE_ALL_DEVICES="0"):
+        alone = pass_devices(dev0)
+    with environ(GPU_BPE_TPU_TOKENIZE_ALL_DEVICES="1"):
+        every = pass_devices(dev0)
+    tok = BPETokenizer(api_out["tokenizer"].model)
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids = api.encode_bulk(tok, corpus)
+    bulk_s = time.perf_counter() - t0
+    bulk_run = {k: kernels.LAUNCHES[k] for k in TOKENIZE_KERNELS}
+    two = Tokenizer(vocab8k, max_pass_bytes=DEVICES_PASS_BYTES, devices=["cuda:0", "cuda:0"])
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ids_two = two.encode_bytes(corpus)
+    two_s = time.perf_counter() - t0
+    two_run = {k: kernels.LAUNCHES[k] for k in TOKENIZE_KERNELS}
+    checks = {"default_is_every_card": pass_devices(dev0) == cards == Tokenizer(vocab8k).devices,
+              "all_devices_0_is_cuda0": alone == [dev0], "all_devices_1_is_every_card": every == cards,
+              "encode_bulk_eq_phase13": np.array_equal(ids, api_out["ids"]),
+              "two_devices_eq_one": np.array_equal(ids_two, ids8k)}
+    emit({"phase": "tokenize_devices", "cards": [str(d) for d in cards], "bytes": len(corpus),
+          "encode_bulk_seconds": bulk_s, "encode_bulk_launches": bulk_run,
+          "two_devices_passes": -(-len(corpus) // two.max_pass_bytes), "two_devices_seconds": two_s,
+          "two_devices_launches": two_run, **checks})
+    if not all(checks.values()) or two_run["compact_valid"] <= 0:
+        raise AssertionError(f"tokenize devices: {checks}, launches {two_run}")
+    for run in (bulk_run, two_run):
+        for k, v in run.items():
+            launches[k] += v
+
+
+def soak_phase(torch, smi: str, launches: dict) -> None:
+    """Phase 24: a fixed slice of the randomized soak (``scripts/
+    torch_soak_fuzz.py``) on the card: tokenizer seeds SOAK_SEED0 on and
+    trainer seeds 1,000,000 above them, in turns. No trial may fail and
+    every kernel (both modes of the merge) must launch. Adds the launches to
+    ``launches``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_soak_fuzz", REPO / SOAK_SCRIPT)
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    out = soak.soak(torch.device("cuda", 0), SOAK_SEED0, SOAK_TOKENIZER_SEEDS, SOAK_TRAINER_SEEDS)
+    trials = out["tokenizer_trials"] + out["trainer_trials"]
+    emit({"phase": "soak", "script": SOAK_SCRIPT, "seed_range": out["seed_range"],
+          "tokenizer_seeds": SOAK_TOKENIZER_SEEDS, "trainer_seeds": SOAK_TRAINER_SEEDS, "trials": out["trials"],
+          "seconds": out["seconds"], "seconds_by_kind": out["seconds_by_kind"],
+          "trials_per_s": trials / out["seconds"], "failures": out["failures"], "launches": out["launches"],
+          "nvidia_smi": smi})
+    missing = [k for k, v in out["launches"].items() if v <= 0]
+    if out["failures"] or missing:
+        raise AssertionError(f"soak: failures {out['failures']}, kernels never launched {missing}")
+    for k, v in out["launches"].items():
+        launches[k] = launches.get(k, 0) + v
 
 
 def replace_state(ts, st):
@@ -2054,7 +2184,7 @@ def main() -> int:
     rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, calls, torch.device("cuda")))
     del calls
 
-    nodedup = api_phases(torch, corpus, vocabs, launches, rows)
+    api_out = api_phases(torch, corpus, vocabs, launches, rows)
     launches[PROBE_LESS] = 0
     dist_phases(torch, corpus, stream, res.merges, launches)
 
@@ -2066,7 +2196,10 @@ def main() -> int:
     selftest_phase(torch, launches)
     rows[EXPLICIT_PROBES] = explicit_probe_row(torch, kernels, real, torch.device("cuda"))
     unicode_phase(torch, smi, launches)
-    multi_merge_phase(torch, corpus, stream, res, nodedup, launches, smi)
+    multi_merge_phase(torch, corpus, stream, res, api_out["nodedup"], launches, smi)
+    force_recount_env_phase(torch, corpus, api_out["train"], launches)
+    tokenize_devices_phase(torch, corpus, api_out, vocabs["8192"], ids["8192"], launches)
+    soak_phase(torch, smi, launches)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

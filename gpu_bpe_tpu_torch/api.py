@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import contextlib
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
+from .core.model_io import BPEModel  # noqa: F401 (importable from here, as in the reference package)
 from .core.trainer_ref import ProgressFn, ReferenceTrainer, TrainingResult, bytes_to_symbols, tag_word_boundaries
 from .models.bpe import BPETokenizer
 from .pretok import PreTokenizer, tag_word_boundaries_bytes
@@ -45,6 +46,7 @@ class TrainConfig:
     seed: int = 0
     show_progress: bool = True
     profile_dir: str | None = None  # capture a torch.profiler trace of training
+    extra: dict = field(default_factory=dict)  # unused, as in the reference package
 
 
 # Extensions taken as text when a directory is expanded

@@ -37,7 +37,9 @@ class TrainingResult:
     merge_counts: list[int] = field(default_factory=list)  # count at merge time
     training_time_s: float = 0.0
     # window-machinery diagnostics: full certificate recounts and
-    # dual/multi-merge fires over the run (the port never multi-merges)
+    # dual/multi-merge fires over the run (second and third merges of the
+    # multi-merge iteration and of the data-parallel loop; 0 in the
+    # default single-chip loop)
     recounts: int = 0
     duals: int = 0
 

@@ -28,6 +28,7 @@ tensors of the same bits.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -644,6 +645,29 @@ def _concrete(device: torch.device) -> torch.device:
     return device
 
 
+def pass_devices(device: torch.device) -> list[torch.device]:
+    """The devices that take the passes of one input in turn when the
+    caller names none (counterpart of ``TPUTokenizer._devices``,
+    ``gpu_bpe_tpu/ops/tokenize.py:1136-1154``): every visible card, starting
+    at ``device``, when ``device`` is a card; ``[device]`` on the CPU.
+    ``GPU_BPE_TPU_TOKENIZE_ALL_DEVICES=1`` takes every visible device of
+    ``device``'s type (the CPU is one), ``=0`` takes ``[device]`` alone.
+
+    The reference spreads passes by default only on the TPU, because each
+    device there compiles its own copy of the pass (on the CPU test mesh that
+    would multiply the compile time by the device count). That reason does
+    not hold here: the port's kernels are built once per tree and serve every
+    card, and a card's only extra cost is one upload of the match tables. The
+    port's accelerator is the card, so "every card" is its counterpart of the
+    reference's "every TPU device"."""
+    flag = os.environ.get("GPU_BPE_TPU_TOKENIZE_ALL_DEVICES")
+    if flag == "0" or device.type != "cuda":
+        return [device]
+    count = torch.cuda.device_count()
+    first = device.index or 0
+    return [torch.device("cuda", (first + i) % count) for i in range(count)]
+
+
 class Tokenizer:
     """Bulk greedy tokenizer: match table, chunk walk and PAD strip on the
     device (counterpart of ``TPUTokenizer``, ``tokenize.py:1044``).
@@ -657,8 +681,10 @@ class Tokenizer:
     device). Runs on the card unless ``device="cpu"``.
 
     ``devices``: the devices that take the passes of one input in turn (the
-    JAX package's round robin, ``tokenize.py:1123-1154``); the default is
-    ``device`` alone. At most ``max(2, len(devices) + 1)`` passes are in
+    JAX package's round robin, ``tokenize.py:1123-1154``), used as given;
+    the default is ``pass_devices(device)``: every visible card on CUDA,
+    ``device`` alone on the CPU, ``GPU_BPE_TPU_TOKENIZE_ALL_DEVICES``
+    overriding either way. At most ``max(2, len(devices) + 1)`` passes are in
     flight; the ids equal those of passes run one after another."""
 
     def __init__(
@@ -673,7 +699,7 @@ class Tokenizer:
         if rank_mode not in (None, "off", "on"):
             raise ValueError(f"rank_mode must be None, 'off' or 'on', got {rank_mode!r}")
         self.device = _concrete(resolve_device(device))
-        self.devices = [_concrete(resolve_device(d)) for d in devices] if devices else [self.device]
+        self.devices = [_concrete(resolve_device(d)) for d in devices] if devices else pass_devices(self.device)
         self.vocab = [bytes(v) for v in vocab]
         self.tables = MatchTables.from_vocab(self.vocab)
         self.rank_mode = rank_mode

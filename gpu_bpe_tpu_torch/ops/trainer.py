@@ -42,6 +42,11 @@ def _recount_budget(cap: int) -> int:
     return max(4, int(target / (_RECOUNT_S_PER_ELEM * max(cap, 1))))
 
 
+def _env_flag(name: str) -> bool:
+    """The reference package's reading of a switch: set and non-empty."""
+    return bool(os.environ.get(name))
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The entry points' device: CUDA unless the caller asks for the CPU;
     asking for CUDA without a CUDA device raises."""
@@ -57,25 +62,31 @@ class Trainer:
     """Device-resident BPE trainer with batched merge loops.
 
     ``force_recount=True`` recounts before every merge (the ground truth
-    that the certified window must reproduce bit for bit).
+    that the certified window must reproduce bit for bit), in either loop
+    and in the loop a resumed checkpoint enters after its replay.
     ``multi_merge=True`` runs the multi-merge iteration (up to three merges
-    per certificate decision, ``train_step._one_merge``); ``None`` takes it
-    from ``GPU_BPE_TPU_MULTI``, read here, as the reference package does.
-    The merge list is the same either way."""
+    per certificate decision, ``train_step._one_merge``). Each is read when
+    the trainer is built where it is ``None``, with the reference package's
+    truthiness (any non-empty value is on): ``force_recount`` from
+    ``GPU_BPE_TPU_FORCE_RECOUNT``, ``multi_merge`` from ``GPU_BPE_TPU_MULTI``.
+    So ``api.train``, ``api.train_files`` and the CLI follow both, and an
+    explicit ``False`` wins over either variable. The data-parallel trainer
+    (``parallel.DistributedTrainer``) reads neither, as in the reference
+    package. The merge list is the same in every mode."""
 
     def __init__(
         self,
         vocab: Vocab | None = None,
         batch_merges: int = BATCH_MERGES,
         device: str | torch.device = "cuda",
-        force_recount: bool = False,
+        force_recount: bool | None = None,
         multi_merge: bool | None = None,
     ):
         self.vocab = vocab or Vocab()
         self.batch_merges = min(batch_merges, BATCH_MERGES)
         self.device = resolve_device(device)
-        self.force_recount = force_recount
-        self.multi_merge = bool(os.environ.get("GPU_BPE_TPU_MULTI")) if multi_merge is None else multi_merge
+        self.force_recount = _env_flag("GPU_BPE_TPU_FORCE_RECOUNT") if force_recount is None else force_recount
+        self.multi_merge = _env_flag("GPU_BPE_TPU_MULTI") if multi_merge is None else multi_merge
 
     def train_stream(
         self,

@@ -29,7 +29,9 @@ class DistributedTrainer:
 
     ``group`` defaults to the initialized default process group
     (``init_multihost``) on ``device``: the card of this rank unless
-    ``device="cpu"``."""
+    ``device="cpu"``. It reads neither ``GPU_BPE_TPU_FORCE_RECOUNT`` nor
+    ``GPU_BPE_TPU_MULTI``: the reference package's data-parallel path
+    (``gpu_bpe_tpu/parallel/dist_train.py``) has no such read either."""
 
     def __init__(self, group: DataGroup | None = None, vocab: Vocab | None = None,
                  batch_merges: int = BATCH_MERGES, device: str | torch.device = "cuda"):

@@ -1,4 +1,5 @@
-"""Utilities: logging, progress reporting, size and duration formatting.
+"""Utilities: logging, progress reporting, phase timing, size and duration
+formatting.
 
 The JAX package's ``utils/compile_cache.py`` (JAX's persistent compilation
 cache) has no counterpart here: the port's compiled artifacts are the
@@ -8,6 +9,6 @@ tree and named by a hash of their sources (``ops/build.py``,
 """
 
 from .logging import get_logger, log_progress
-from .timing import format_duration, format_size
+from .timing import PhaseTimer, format_duration, format_size
 
-__all__ = ["format_duration", "format_size", "get_logger", "log_progress"]
+__all__ = ["PhaseTimer", "format_duration", "format_size", "get_logger", "log_progress"]

@@ -12,7 +12,12 @@ times, each in its own process (fresh kernel scratch, pools and caches):
 1. the certified run;
 2. the certified run on the same stream with its unique words in a
    permuted order (other positions, blocks and window picks);
-3. ``force_recount=True``: a full recount before every merge.
+3. the ground truth: a full recount before every merge, asked for as the
+   JAX recipe asks for it, with ``GPU_BPE_TPU_FORCE_RECOUNT=1`` in the
+   run's own process and ``Trainer()``'s ``force_recount`` left at its
+   default, which reads the variable. The run must report one recount per
+   merge before any hash is compared: a trainer that ignored the variable
+   would compare the certified loop with itself.
 
 Each run prints one JSON line with the SHA-256 of ``json.dumps`` of its
 merge list ``[[a, b, id], ...]`` and of its counts, the recipe's
@@ -33,6 +38,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -80,8 +86,7 @@ def child(run: str, stream_path: str, merges: int, device: str, multi: bool) -> 
     if run == "permuted":
         sym, w = permuted(sym, w)
     stream = stream_from_numpy(sym, w, len(sym), int(z["total_bytes"]))
-    r = Trainer(device=device, force_recount=run == "force_recount", multi_merge=multi).train_stream(
-        stream, target_vocab_size=256 + merges)
+    r = Trainer(device=device, multi_merge=multi).train_stream(stream, target_vocab_size=256 + merges)
     print(json.dumps({"run": run, "multi_merge": multi, "stream_n": stream.n, "merges": len(r.merges),
                       "recounts": r.recounts, "duals": r.duals, "seconds": r.training_time_s,
                       "merges_per_s": len(r.merges) / r.training_time_s, **hashes(r)}), flush=True)
@@ -131,15 +136,24 @@ def main() -> int:
         np.savez(path, symbols=stream.symbols[: stream.n], weights=stream.weights[: stream.n],
                  total_bytes=stream.total_bytes)
         for run in RUNS:
+            env = dict(os.environ)
+            env.pop("GPU_BPE_TPU_FORCE_RECOUNT", None)
+            if run == "force_recount":
+                env["GPU_BPE_TPU_FORCE_RECOUNT"] = "1"
             p = subprocess.run([sys.executable, __file__, "--child", run, "--stream", path,
                                 "--merges", str(args.merges), "--device", args.device]
                                + (["--multi"] if args.multi else []),
-                               capture_output=True, text=True)
+                               capture_output=True, text=True, env=env)
             if p.returncode != 0:
                 print(p.stderr[-3000:], file=sys.stderr)
                 return 1
             results[run] = json.loads(p.stdout.strip().splitlines()[-1])
             print(json.dumps(results[run]), flush=True)
+    truth = results["force_recount"]
+    if truth["recounts"] != truth["merges"]:
+        print(f"the force_recount run made {truth['recounts']} recounts in {truth['merges']} merges: "
+              "GPU_BPE_TPU_FORCE_RECOUNT did not reach the trainer", file=sys.stderr)
+        return 1
     keys = ("merges", "sha_merges", "sha_counts")
     same = all(all(r[k] == results["certified"][k] for k in keys) for r in results.values())
     matches = want is None or all(results["certified"][k] == want[k] for k in keys[1:])

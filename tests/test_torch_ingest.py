@@ -76,7 +76,8 @@ def test_byte_heuristic_bitwise(english_text):
 def test_import_leaves_out_jax_and_the_reference_package():
     """Every module of the port, found by walking the package (a new
     subpackage is covered without a change here), imports neither JAX nor
-    the JAX package: both are blocked, and none is loaded at the end. The
+    the JAX package: both are blocked, and none is loaded at the end; nor
+    does ``scripts/torch_soak_fuzz.py``, which makes a case of the soak. The
     optional ``regex`` module is blocked too, and the Unicode library,
     segmentation included, still runs."""
     code = (
@@ -105,6 +106,11 @@ def test_import_leaves_out_jax_and_the_reference_package():
         "assert b.is_suspicious('p\\u0430ypal') and b.get_skeleton('\\ufb01le') == 'file'\n"
         "import gpu_bpe_tpu_torch.ops.native as nat\n"
         "assert nat.native_available()\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('torch_soak_fuzz', 'scripts/torch_soak_fuzz.py')\n"
+        "soak = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(soak)\n"
+        "assert soak.tokenizer_case(1000)['shape'] == 'dense'\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu', 'regex') "
         "or m.startswith(('jax.', 'gpu_bpe_tpu.', 'regex.'))]\n"
         "print(len(names), bad)\n"

@@ -6,7 +6,9 @@ package's TPUTrainer with ``GPU_BPE_TPU_MULTI=1`` (in a subprocess: the
 flag is read once per process and cached at trace time), with and without
 ``GPU_BPE_TPU_PALLAS_INTERPRET=1`` (the Pallas branch of its
 ``_merge_and_track`` in interpret mode), the port's default loop and the
-CPU oracle ``ReferenceTrainer``."""
+CPU oracle ``ReferenceTrainer``. The same holds for the ground truth of
+``GPU_BPE_TPU_FORCE_RECOUNT=1`` in both loops, which must also reach the
+port's API, streamed API and CLI."""
 
 import json
 import os
@@ -49,6 +51,29 @@ r = TPUTrainer().train(data, starts, target_vocab_size=int(sys.argv[3]))
 json.dump({'m': r.merges, 'c': r.merge_counts, 'duals': r.duals, 'recounts': r.recounts}, open(sys.argv[2], 'w'))
 """
 JAX_MODES = {"jnp": {}, "interpret": {"GPU_BPE_TPU_PALLAS_INTERPRET": "1"}}
+# GPU_BPE_TPU_FORCE_RECOUNT=1: the port's three entry points in one process,
+# each run's result taken from Trainer.train_stream
+PORT_FORCE_WORKER = """\
+import sys, json
+from gpu_bpe_tpu_torch import api, cli
+from gpu_bpe_tpu_torch.ops import trainer as tr
+runs = []
+real = tr.Trainer.train_stream
+def record(self, *a, **k):
+    r = real(self, *a, **k)
+    runs.append({'m': r.merges, 'c': r.merge_counts, 'recounts': r.recounts, 'duals': r.duals,
+                 'force_recount': self.force_recount})
+    return r
+tr.Trainer.train_stream = record
+corpus, out, vocab, tmp = sys.argv[1:5]
+config = api.TrainConfig(vocab_size=int(vocab), device='cpu', show_progress=False)
+api.train(open(corpus, 'rb').read(), config)
+api.train_files([corpus], config)
+assert cli.main(['train', corpus, '-o', tmp + '/m.json', '--vocab-size', vocab, '--device', 'cpu']) == 0
+json.dump(runs, open(out, 'w'))
+"""
+FORCE_LOOPS = {"default": {}, "multi": {"GPU_BPE_TPU_MULTI": "1"}}
+ENTRY_POINTS = ("api.train", "api.train_files", "cli train")
 
 
 @pytest.fixture(scope="module")
@@ -75,6 +100,36 @@ def jax_multi(corpus, tmp_path_factory):
         _, err = p.communicate(timeout=300)
         assert p.returncode == 0, err.decode()[-2000:]
         out[mode] = json.loads((tmp / f"{mode}.json").read_text())
+    return out
+
+
+@pytest.fixture(scope="module")
+def force_env_runs(corpus, tmp_path_factory):
+    """With GPU_BPE_TPU_FORCE_RECOUNT=1, side by side: TPUTrainer in the
+    default loop and with GPU_BPE_TPU_MULTI=1 ({"jax": {loop: result}}), and
+    the port's api.train, api.train_files and CLI train in one process
+    ({"port": [result per entry point]})."""
+    tmp = tmp_path_factory.mktemp("force_env")
+    (tmp / "w.py").write_text(JAX_WORKER)
+    (tmp / "p.py").write_text(PORT_FORCE_WORKER)
+    (tmp / "c.txt").write_bytes(corpus)
+    base = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu", GPU_BPE_TPU_FORCE_RECOUNT="1")
+    base.pop("GPU_BPE_TPU_MULTI", None)
+    procs = {("jax", loop): subprocess.Popen(
+        [sys.executable, str(tmp / "w.py"), str(tmp / "c.txt"), str(tmp / f"jax_{loop}.json"), str(VOCAB)],
+        env=dict(base, **extra), stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for loop, extra in FORCE_LOOPS.items()}
+    procs[("port", None)] = subprocess.Popen(
+        [sys.executable, str(tmp / "p.py"), str(tmp / "c.txt"), str(tmp / "port.json"), str(VOCAB), str(tmp)],
+        env=base, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    out = {"jax": {}}
+    for (who, loop), p in procs.items():
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err.decode()[-2000:]
+        if who == "jax":
+            out["jax"][loop] = json.loads((tmp / f"jax_{loop}.json").read_text())
+        else:
+            out["port"] = json.loads((tmp / "port.json").read_text())
     return out
 
 
@@ -374,3 +429,70 @@ def test_maintained_counts_stay_exact():
         if int(st.early_stop):
             break
     assert duals > 0
+
+
+@pytest.mark.parametrize("loop", list(FORCE_LOOPS))
+def test_force_recount_env_matches_jax(corpus, force_env_runs, monkeypatch, loop):
+    """GPU_BPE_TPU_FORCE_RECOUNT=1 read by Trainer(): the merge list, counts
+    and recounts equal TPUTrainer's under the same variables, in the
+    default loop and in the multi-merge loop."""
+    monkeypatch.setenv("GPU_BPE_TPU_FORCE_RECOUNT", "1")
+    monkeypatch.delenv("GPU_BPE_TPU_MULTI", raising=False)
+    for k, v in FORCE_LOOPS[loop].items():
+        monkeypatch.setenv(k, v)
+    data, starts = _pretok(corpus)
+    trainer = Trainer(device="cpu")
+    assert trainer.force_recount and trainer.multi_merge == (loop == "multi")
+    port = trainer.train(data, starts, target_vocab_size=VOCAB)
+    jr = force_env_runs["jax"][loop]
+    print(f"{loop}: recounts port {port.recounts} jax {jr['recounts']}; duals port {port.duals} jax {jr['duals']}")
+    assert port.merges == [tuple(m) for m in jr["m"]] and port.merge_counts == jr["c"]
+    assert port.recounts == jr["recounts"] == len(port.merges) == VOCAB - 256
+    assert port.duals == jr["duals"] == 0
+
+
+@pytest.mark.parametrize("entry", range(len(ENTRY_POINTS)), ids=ENTRY_POINTS)
+def test_force_recount_env_reaches_the_entry_points(corpus, force_env_runs, monkeypatch, entry):
+    """api.train, api.train_files and the CLI's train, in a process with
+    GPU_BPE_TPU_FORCE_RECOUNT=1: a recount before every merge, and the merge
+    list of a run without the variable."""
+    monkeypatch.delenv("GPU_BPE_TPU_FORCE_RECOUNT", raising=False)
+    monkeypatch.delenv("GPU_BPE_TPU_MULTI", raising=False)
+    _, plain = api.train(corpus, api.TrainConfig(vocab_size=VOCAB, device="cpu", show_progress=False))
+    runs = force_env_runs["port"]
+    assert len(runs) == len(ENTRY_POINTS)
+    run = runs[entry]
+    assert run["force_recount"] and run["recounts"] == len(run["m"]) == VOCAB - 256 and run["duals"] == 0
+    assert [tuple(m) for m in run["m"]] == plain.merges and run["c"] == plain.merge_counts
+    assert plain.recounts < len(plain.merges)
+
+
+def test_explicit_force_recount_false_wins_over_the_env(corpus, monkeypatch):
+    monkeypatch.setenv("GPU_BPE_TPU_FORCE_RECOUNT", "1")
+    assert Trainer(device="cpu").force_recount
+    trainer = Trainer(device="cpu", force_recount=False)
+    assert not trainer.force_recount
+    data, starts = _pretok(corpus)
+    res = trainer.train(data, starts, target_vocab_size=VOCAB)
+    assert res.recounts < len(res.merges)
+    monkeypatch.setenv("GPU_BPE_TPU_FORCE_RECOUNT", "")  # the reference's truthiness: empty is off
+    assert not Trainer(device="cpu").force_recount
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_force_recount_env_after_a_resume(english_text, tmp_path, monkeypatch, multi):
+    """A checkpoint written without the variable, resumed with it set: the
+    loop entered after the replay recounts before every merge, and the
+    list equals the one-shot run's."""
+    monkeypatch.delenv("GPU_BPE_TPU_FORCE_RECOUNT", raising=False)
+    data, starts = _pretok(english_text[:6000])
+    stream = make_stream(data, starts)
+    one_shot = Trainer(device="cpu", multi_merge=multi).train_stream(stream, target_vocab_size=340)
+    path = str(tmp_path / "ckpt.json")
+    Trainer(batch_merges=16, device="cpu", multi_merge=multi).train_stream(
+        stream, target_vocab_size=300, checkpoint_path=path, checkpoint_every=1)
+    monkeypatch.setenv("GPU_BPE_TPU_FORCE_RECOUNT", "1")
+    resumed = Trainer(batch_merges=16, device="cpu", multi_merge=multi).train_stream(
+        stream, target_vocab_size=340, checkpoint_path=path)
+    _same(resumed, one_shot)
+    assert resumed.recounts == 340 - 300 and resumed.duals == 0
