@@ -177,12 +177,28 @@ Phases, each printing one JSON line:
    tokenizer seeds 1000-1063 and trainer seeds 1,001,000-1,001,031 (eight
    on each trainer loop): no trial may fail, and every kernel, both modes
    of the merge included, must launch; trial counts by kind, seconds,
-   trials per second and launches.
+   trials per second and launches;
+25. bitonic: the bitonic compare-exchange rounds (`ops/bitonic.py`,
+   `bitonic_rounds.cu`, the port of the Pallas kernel of
+   `scripts/microbench_bitonic.py`) against their plain version on the
+   card (tolerance 0): at the JAX script's default shape (147 blocks of
+   [1024, 128], 32 rounds), at 0, 1, 7, 10, 70 and 71 rounds on 1 and 2
+   blocks for the script's inputs, words with bit 31 set in every word,
+   ties in word 0, ties in words 0-1 and whole-row duplicates, and on a
+   second stream; then `scripts/torch_microbench_bitonic.py`'s run at the
+   default shape (the kernel's launches counted from 0 around it): ms per
+   call back to back, ns per element and round, the 153-round estimate
+   and the `torch.sort` yardsticks (int64 keys over [147, 2^17], stable
+   and not, and the recount's [cap >> 17, 2^17] sort at 2^22 and 2^25);
+   the kernel's ms, host_ms, device_ms and device_ops (one operation), the
+   plain version's time and the bound.
 
 The launch counts of the kernels' line are the sums over the main-path
 runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
 21's main and 2^25 runs, and phases 22-24), each counted from 0; the
-explicit-probe mode runs on the selftest's path only.
+explicit-probe mode runs on the selftest's path only, and
+`bitonic_rounds`, which no training or tokenize path calls, on phase
+25's run of the microbenchmark.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -232,6 +248,7 @@ KERNELS = {
     "compact_mask": (f"{CSRC}/compact_mask.cu", f"{PALLAS}:746"),
     "expand_to_mask": (f"{CSRC}/expand_to_mask.cu", f"{PALLAS}:943"),
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
+    "bitonic_rounds": (f"{CSRC}/bitonic_rounds.cu", "scripts/microbench_bitonic.py:44"),
 }
 PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
@@ -255,6 +272,13 @@ SOAK_SCRIPT = "scripts/torch_soak_fuzz.py"
 SOAK_SEED0 = 1000  # phase 24: tokenizer seeds SOAK_SEED0.., trainer seeds 1,000,000 above them
 SOAK_TOKENIZER_SEEDS = 64
 SOAK_TRAINER_SEEDS = 32  # eight on each of the four trainer loops
+BITONIC_SCRIPT = "scripts/torch_microbench_bitonic.py"
+BITONIC_BLOCKS, BITONIC_ROUNDS = 147, 32  # scripts/microbench_bitonic.py's defaults
+BITONIC_EDGE_ROUNDS = (0, 1, 7, 10, 70, 71)  # identity, one round, one stride cycle, one direction cycle, both
+BITONIC_KINDS = ("script", "bit31", "ties0", "ties01", "dup_rows")
+BITONIC_CAPS = (1 << 22, 1 << 25)  # the segmented recount's smallest and the no-dedup capacity
+BITONIC_OPS = 6  # per element and round: three word compares, three selects
+NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (fp32; no int32 rate is published)
 
 
 def emit(obj) -> None:
@@ -1676,7 +1700,7 @@ def selftest_phase(torch, launches: dict) -> None:
     if not all(results.values()) or run[EXPLICIT_PROBES] <= 0:
         raise AssertionError(f"kernel selftest failed: {results}, launches {run}")
     for k, v in run.items():
-        launches[k] += v
+        launches[k] = launches.get(k, 0) + v
 
 
 def explicit_probe_row(torch, kernels, real, dev) -> dict:
@@ -2020,6 +2044,94 @@ def soak_phase(torch, smi: str, launches: dict) -> None:
         launches[k] = launches.get(k, 0) + v
 
 
+def bitonic_inputs(kind: str, blocks: int, seed: int) -> list[np.ndarray]:
+    """Three int32 [blocks * 1024, 128] arrays of u32 words for phase 25:
+    every word with bit 31 set, word 0 from three values (ties in word 0),
+    words 0 and 1 from three values each (ties in words 0-1), or random
+    words whose every 16th row is one triple repeated and whose odd rows
+    repeat the row before."""
+    shape = (blocks * 1024, 128)
+    rng = np.random.default_rng(seed)
+    words = [rng.integers(0, 1 << 32, size=shape, dtype=np.int64).astype(np.uint32) for _ in range(3)]
+    few = np.array([0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+    if kind == "bit31":
+        words = [w | np.uint32(0x80000000) for w in words]
+    elif kind in ("ties0", "ties01"):
+        for w in words[: 1 if kind == "ties0" else 2]:
+            w[:] = rng.choice(few, size=shape)
+    elif kind == "dup_rows":
+        for w in words:
+            w[::16] = w[::16, :1]
+            w[1::2] = w[0::2]
+    else:
+        raise ValueError(kind)
+    return [w.view(np.int32) for w in words]
+
+
+def bitonic_phase(torch, smi: str, launches: dict, rows: dict) -> None:
+    """Phase 25: the bitonic rounds against their plain version on every
+    case, then the microbenchmark's run with the kernel's launches counted
+    from 0, and the kernel's row."""
+    import importlib.util
+
+    from gpu_bpe_tpu_torch.ops import bitonic, kernels
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("torch_microbench_bitonic", REPO / BITONIC_SCRIPT)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def check(words, rounds, stream=None):
+        t = [torch.as_tensor(w, device=dev) for w in words]
+        if stream is None:
+            got = bitonic.bitonic_rounds(*t, rounds)
+        else:
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                got = bitonic.bitonic_rounds(*t, rounds)
+            stream.synchronize()
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+        return max_abs_diff(got, bitonic.bitonic_rounds_plain(*t, rounds))
+
+    a, b, c = bench.script_inputs(BITONIC_BLOCKS, dev)
+    errs = {"default": check((a, b, c), BITONIC_ROUNDS)}
+    for i, kind in enumerate(BITONIC_KINDS):
+        for blocks in (1, 2):
+            words = bench.script_inputs(blocks, dev) if kind == "script" else bitonic_inputs(kind, blocks, 100 + i)
+            for r in BITONIC_EDGE_ROUNDS:
+                errs[f"{kind}/b{blocks}/r{r}"] = check(words, r)
+    errs["second_stream"] = check(bitonic_inputs("bit31", 2, 200), 71, torch.cuda.Stream(device=dev))
+    check_s = time.perf_counter() - t0
+
+    kernels.LAUNCHES["bitonic_rounds"] = 0
+    out = bench.run(dev, BITONIC_BLOCKS, BITONIC_ROUNDS, list(BITONIC_CAPS))
+    n_launch = kernels.LAUNCHES["bitonic_rounds"]
+
+    fn = lambda: bitonic.bitonic_rounds(a, b, c, BITONIC_ROUNDS)  # noqa: E731
+    prof = device_profile(torch, fn)
+    elems = out["elements"]
+    bound = {"bytes": 24 * elems / HBM_BYTES_PER_S * 1e3,
+             "operations": BITONIC_OPS * elems * BITONIC_ROUNDS / NON_TENSOR_OPS_PER_S * 1e3}
+    row = {"max_abs_err": max(errs.values()), "ms": time_ms(torch, fn, 20), "host_ms": host_ms(torch, fn, 50),
+           "device_ms": prof["device_ms"], "device_ops": prof["device_ops"],
+           "plain_ms": time_ms(torch, lambda: bitonic.bitonic_rounds_plain(a, b, c, BITONIC_ROUNDS), 3),
+           "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get), "library_ms": None}
+    emit({"phase": "bitonic", "script": BITONIC_SCRIPT, "cases": len(errs), "check_seconds": check_s, **row, "bytes_bound_ms": bound["bytes"],
+          "ops_bound_ms": bound["operations"], "device_op_names": prof["device_op_names"], "launches": n_launch,
+          "script_line": bench.script_line(out), "back_to_back_ms": out["ms"],
+          **{k: v for k, v in out.items() if k not in ("ms", "device")},
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    if row["max_abs_err"] != 0:
+        raise AssertionError(f"bitonic_rounds differs from its plain version: {errs}")
+    if prof["device_ops"] != 1:
+        raise AssertionError(f"bitonic_rounds put {prof['device_ops']} operations on the card per call, want 1")
+    if n_launch <= 0:
+        raise AssertionError("bitonic_rounds never launched in the microbenchmark's run")
+    launches["bitonic_rounds"] = n_launch
+    rows["bitonic_rounds"] = row
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -2200,11 +2312,13 @@ def main() -> int:
     force_recount_env_phase(torch, corpus, api_out["train"], launches)
     tokenize_devices_phase(torch, corpus, api_out, vocabs["8192"], ids["8192"], launches)
     soak_phase(torch, smi, launches)
+    bitonic_phase(torch, smi, launches, rows)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],
          "max_abs_err": rows[k]["max_abs_err"], "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
-         "bound_ms": rows[k]["bound_ms"], "bound_by": "bytes", "library_ms": rows[k].get("library_ms")}
+         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k].get("bound_by", "bytes"),
+         "library_ms": rows[k].get("library_ms")}
         for k, (src, rep) in KERNELS.items()
     ]})
     print(smi, flush=True)

@@ -77,7 +77,8 @@ def test_import_leaves_out_jax_and_the_reference_package():
     """Every module of the port, found by walking the package (a new
     subpackage is covered without a change here), imports neither JAX nor
     the JAX package: both are blocked, and none is loaded at the end; nor
-    does ``scripts/torch_soak_fuzz.py``, which makes a case of the soak. The
+    do ``scripts/torch_soak_fuzz.py``, which makes a case of the soak, and
+    ``scripts/torch_microbench_bitonic.py``, which makes its inputs. The
     optional ``regex`` module is blocked too, and the Unicode library,
     segmentation included, still runs."""
     code = (
@@ -97,7 +98,7 @@ def test_import_leaves_out_jax_and_the_reference_package():
         "        'gpu_bpe_tpu_torch.ops.selftest', 'gpu_bpe_tpu_torch.core.hf_io',\n"
         "        'gpu_bpe_tpu_torch.utils.logging', 'gpu_bpe_tpu_torch.utils.timing',\n"
         "        'gpu_bpe_tpu_torch.unicode.segmentation', 'gpu_bpe_tpu_torch.unicode.enums',\n"
-        "        'gpu_bpe_tpu_torch.unicode.selftest'} <= set(names), names\n"
+        "        'gpu_bpe_tpu_torch.unicode.selftest', 'gpu_bpe_tpu_torch.ops.bitonic'} <= set(names), names\n"
         "from gpu_bpe_tpu_torch import unicode as u\n"
         "from gpu_bpe_tpu_torch.unicode import segmentation as seg\n"
         "b = u.get_backend()\n"
@@ -111,6 +112,11 @@ def test_import_leaves_out_jax_and_the_reference_package():
         "soak = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(soak)\n"
         "assert soak.tokenizer_case(1000)['shape'] == 'dense'\n"
+        "spec = importlib.util.spec_from_file_location('torch_microbench_bitonic', "
+        "'scripts/torch_microbench_bitonic.py')\n"
+        "bench = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(bench)\n"
+        "assert [tuple(t.shape) for t in bench.script_inputs(1, 'cpu')] == [(1024, 128)] * 3\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu', 'regex') "
         "or m.startswith(('jax.', 'gpu_bpe_tpu.', 'regex.'))]\n"
         "print(len(names), bad)\n"
