@@ -182,16 +182,22 @@ Phases, each printing one JSON line:
    `bitonic_rounds.cu`, the port of the Pallas kernel of
    `scripts/microbench_bitonic.py`) against their plain version on the
    card (tolerance 0): at the JAX script's default shape (147 blocks of
-   [1024, 128], 32 rounds), at 0, 1, 7, 10, 70 and 71 rounds on 1 and 2
-   blocks for the script's inputs, words with bit 31 set in every word,
-   ties in word 0, ties in words 0-1 and whole-row duplicates, and on a
-   second stream; then `scripts/torch_microbench_bitonic.py`'s run at the
+   [1024, 128]) at 32 and at 153 rounds (a full sort's), at 0-8, 10, 13,
+   32, 69, 70, 71 and 153 rounds (every end of the kernel's unrolled
+   7-stride cycle and of the 10-round direction cycle) on 1 and 2 blocks
+   for the script's inputs, words with bit 31 set in every word, ties in
+   word 0, ties in words 0-1 and whole-row duplicates, and on a second
+   stream; then `scripts/torch_microbench_bitonic.py`'s run at the
    default shape (the kernel's launches counted from 0 around it): ms per
    call back to back, ns per element and round, the 153-round estimate
    and the `torch.sort` yardsticks (int64 keys over [147, 2^17], stable
    and not, and the recount's [cap >> 17, 2^17] sort at 2^22 and 2^25);
-   the kernel's ms, host_ms, device_ms and device_ops (one operation), the
-   plain version's time and the bound.
+   the kernel's ms, host_ms, device_ms and device_ops (one operation, at
+   32 and at 153 rounds), the plain version's time, the bytes and
+   operations bounds (5 integer operations per element and round at 64
+   per clock per SM, from the card's SM count and maximum SM clock), the
+   rate, `bound_by` and `bound_fraction` (the bound over the back-to-back
+   ms).
 
 The launch counts of the kernels' line are the sums over the main-path
 runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
@@ -274,11 +280,16 @@ SOAK_TOKENIZER_SEEDS = 64
 SOAK_TRAINER_SEEDS = 32  # eight on each of the four trainer loops
 BITONIC_SCRIPT = "scripts/torch_microbench_bitonic.py"
 BITONIC_BLOCKS, BITONIC_ROUNDS = 147, 32  # scripts/microbench_bitonic.py's defaults
-BITONIC_EDGE_ROUNDS = (0, 1, 7, 10, 70, 71)  # identity, one round, one stride cycle, one direction cycle, both
+# identity, one round, every end of the unrolled 7-stride cycle (R % 7) and of
+# the 10-round direction cycle (R % 10), both cycles whole, and a full sort's 153
+BITONIC_EDGE_ROUNDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 13, 32, 69, 70, 71, 153)
 BITONIC_KINDS = ("script", "bit31", "ties0", "ties01", "dup_rows")
 BITONIC_CAPS = (1 << 22, 1 << 25)  # the segmented recount's smallest and the no-dedup capacity
-BITONIC_OPS = 6  # per element and round: three word compares, three selects
-NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores (fp32; no int32 rate is published)
+BITONIC_FULL_ROUNDS = 153  # a full bitonic sort of one 2^17 segment, also checked at the default blocks
+# per element and round: one 3-word compare per pair (3 ops), its direction
+# (1), six selects (6): 10 per pair of elements
+BITONIC_OPS = 5
+INT32_LANES_PER_SM = 64  # 32-bit integer add, compare, select and logic results per clock per SM (cc 9.0)
 
 
 def emit(obj) -> None:
@@ -2068,6 +2079,16 @@ def bitonic_inputs(kind: str, blocks: int, seed: int) -> list[np.ndarray]:
     return [w.view(np.int32) for w in words]
 
 
+def int32_ops_per_s(torch, dev) -> dict:
+    """The card's 32-bit integer rate: INT32_LANES_PER_SM results per clock
+    on each SM at the maximum SM clock that nvidia-smi reads."""
+    out = subprocess.run(["nvidia-smi", "-i", str(dev.index), "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"int32_ops_per_s": INT32_LANES_PER_SM * sms * mhz * 1e6, "sms": sms, "max_sm_mhz": mhz}
+
+
 def bitonic_phase(torch, smi: str, launches: dict, rows: dict) -> None:
     """Phase 25: the bitonic rounds against their plain version on every
     case, then the microbenchmark's run with the kernel's launches counted
@@ -2102,6 +2123,8 @@ def bitonic_phase(torch, smi: str, launches: dict, rows: dict) -> None:
             for r in BITONIC_EDGE_ROUNDS:
                 errs[f"{kind}/b{blocks}/r{r}"] = check(words, r)
     errs["second_stream"] = check(bitonic_inputs("bit31", 2, 200), 71, torch.cuda.Stream(device=dev))
+    errs[f"default/r{BITONIC_FULL_ROUNDS}"] = check((a, b, c), BITONIC_FULL_ROUNDS)
+    full_prof = device_profile(torch, lambda: bitonic.bitonic_rounds(a, b, c, BITONIC_FULL_ROUNDS), reps=5)
     check_s = time.perf_counter() - t0
 
     kernels.LAUNCHES["bitonic_rounds"] = 0
@@ -2111,21 +2134,26 @@ def bitonic_phase(torch, smi: str, launches: dict, rows: dict) -> None:
     fn = lambda: bitonic.bitonic_rounds(a, b, c, BITONIC_ROUNDS)  # noqa: E731
     prof = device_profile(torch, fn)
     elems = out["elements"]
+    rate = int32_ops_per_s(torch, dev)
     bound = {"bytes": 24 * elems / HBM_BYTES_PER_S * 1e3,
-             "operations": BITONIC_OPS * elems * BITONIC_ROUNDS / NON_TENSOR_OPS_PER_S * 1e3}
+             "operations": BITONIC_OPS * elems * BITONIC_ROUNDS / rate["int32_ops_per_s"] * 1e3}
     row = {"max_abs_err": max(errs.values()), "ms": time_ms(torch, fn, 20), "host_ms": host_ms(torch, fn, 50),
            "device_ms": prof["device_ms"], "device_ops": prof["device_ops"],
            "plain_ms": time_ms(torch, lambda: bitonic.bitonic_rounds_plain(a, b, c, BITONIC_ROUNDS), 3),
            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get), "library_ms": None}
     emit({"phase": "bitonic", "script": BITONIC_SCRIPT, "cases": len(errs), "check_seconds": check_s, **row, "bytes_bound_ms": bound["bytes"],
-          "ops_bound_ms": bound["operations"], "device_op_names": prof["device_op_names"], "launches": n_launch,
+          "ops_bound_ms": bound["operations"], "ops_per_element_round": BITONIC_OPS, **rate,
+          "bound_fraction": row["bound_ms"] / out["ms"], "device_op_names": prof["device_op_names"],
+          "full_rounds": BITONIC_FULL_ROUNDS, "full_device_ms": full_prof["device_ms"],
+          "full_device_ops": full_prof["device_ops"], "launches": n_launch,
           "script_line": bench.script_line(out), "back_to_back_ms": out["ms"],
           **{k: v for k, v in out.items() if k not in ("ms", "device")},
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
     if row["max_abs_err"] != 0:
         raise AssertionError(f"bitonic_rounds differs from its plain version: {errs}")
-    if prof["device_ops"] != 1:
-        raise AssertionError(f"bitonic_rounds put {prof['device_ops']} operations on the card per call, want 1")
+    for p in (prof, full_prof):
+        if p["device_ops"] != 1:
+            raise AssertionError(f"bitonic_rounds put {p['device_ops']} operations on the card per call, want 1")
     if n_launch <= 0:
         raise AssertionError("bitonic_rounds never launched in the microbenchmark's run")
     launches["bitonic_rounds"] = n_launch

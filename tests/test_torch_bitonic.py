@@ -182,3 +182,111 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         tb.bitonic_rounds(a, b, c, rounds)
     with pytest.raises(ValueError):
         tb.bitonic_rounds_plain(a, b, c, rounds)
+
+
+def _rule_inputs(kind: str) -> list[np.ndarray]:
+    """One block of words: the script's; every word in [0, 2) or [0, 4)
+    (nearly every pair ties, often in all three words); every word with
+    bit 31 set; or random words whose odd rows repeat the row before."""
+    if kind == "script":
+        return _script_inputs(1)
+    rng = np.random.default_rng(len(kind))
+    shape = (ROWS, LANES)
+    if kind in ("ties2", "ties4"):
+        high = int(kind[-1])
+        return [rng.integers(0, high, size=shape, dtype=np.int64).astype(np.uint32).view(np.int32)
+                for _ in range(3)]
+    words = [rng.integers(0, 1 << 32, size=shape, dtype=np.int64).astype(np.uint32) for _ in range(3)]
+    if kind == "bit31":
+        words = [w | np.uint32(0x80000000) for w in words]
+    else:
+        for w in words:
+            w[1::2] = w[0::2]
+    return [w.view(np.int32) for w in words]
+
+
+def _round_without_equality(words: list[torch.Tensor], r: int) -> list[torch.Tensor]:
+    """Round ``r`` of ``bitonic_rounds_plain``'s body, with the take rule of
+    ``bitonic_rounds.cu``: ``take = (x1 == lt)``, no equality test (where
+    the keys are equal, the partner's words are the element's own)."""
+    lane = torch.arange(LANES)
+    row_fi = (torch.arange(words[0].shape[0]) % ROWS * LANES).view(-1, 1)
+    j, k = tb._round(r)
+    lo = (lane & j) == 0
+    part = [torch.where(lo, torch.roll(x, LANES - j, 1), torch.roll(x, j, 1)) for x in words]
+    u = [x.to(torch.int64) & 0xFFFFFFFF for x in words]
+    pu = [x.to(torch.int64) & 0xFFFFFFFF for x in part]
+    lt = (u[0] < pu[0]) | ((u[0] == pu[0]) & ((u[1] < pu[1]) | ((u[1] == pu[1]) & (u[2] < pu[2]))))
+    x1 = ((row_fi & k) == 0) ^ lo
+    take = x1 == lt
+    return [torch.where(take, p, x) for p, x in zip(part, words)]
+
+
+@pytest.mark.parametrize("kind", ["script", "ties2", "ties4", "bit31", "dup_rows"])
+def test_dropping_the_equality_test_changes_no_output(kind):
+    """The design rule of ``bitonic_rounds.cu``: an element takes its
+    partner's words where ``x1 == lt``, with no equality term, and the
+    outputs equal ``bitonic_rounds_plain`` bit for bit after every round
+    count checked."""
+    t = [torch.from_numpy(w) for w in _rule_inputs(kind)]
+    if kind.startswith("ties"):
+        assert (t[0] == torch.roll(t[0], 1, 1)).float().mean() > 0.2
+    checked = set(range(1, 15)) | {32, 70, 71}
+    words = t
+    for r in range(max(checked)):
+        words = _round_without_equality(words, r)
+        if r + 1 in checked:
+            for got, want in zip(words, tb.bitonic_rounds_plain(*t, r + 1), strict=True):
+                assert torch.equal(got, want), (kind, r + 1)
+
+
+def _kernel_schedule(words: list[np.ndarray], rounds: int, per_lane: int) -> list[np.ndarray]:
+    """``bitonic_rounds.cu``'s schedule in numpy: element e of a row in
+    lane e % (128 / per_lane) of the row's group, register e // (128 /
+    per_lane); a stride of at least 128 / per_lane pairs two registers of
+    one lane and swaps them where ``less(high, low) ^ desc``; a smaller one
+    pairs two lanes, each taking its partner's words where ``less(partner,
+    self) ^ desc ^ high``; desc is bit r % 10 of the row."""
+    group = LANES // per_lane
+    u = np.stack([w.view(np.uint32).astype(np.uint64) for w in words])
+    rows = u.shape[1]
+    v = u.reshape(3, rows, per_lane, group).transpose(0, 1, 3, 2).copy()  # [word, row, lane, register]
+
+    def less(a, b):
+        return (a[0] < b[0]) | ((a[0] == b[0]) & ((a[1] < b[1]) | ((a[1] == b[1]) & (a[2] < b[2]))))
+
+    lane = np.arange(group)
+    for r in range(rounds):
+        j = 1 << (r % 7)
+        desc = (((np.arange(rows) % ROWS) >> (r % 10)) & 1).astype(bool)[:, None]
+        if j >= group:
+            d = j // group
+            for q in range(per_lane):
+                if q & d:
+                    continue
+                low, high = v[..., q].copy(), v[..., q | d].copy()
+                swap = less(high, low) ^ desc
+                v[..., q] = np.where(swap, high, low)
+                v[..., q | d] = np.where(swap, low, high)
+        else:
+            part = v[:, :, lane ^ j, :]
+            take = less(part, v) ^ (desc ^ ((lane & j) != 0)[None, :])[:, :, None]
+            v = np.where(take, part, v)
+    out = v.transpose(0, 1, 3, 2).reshape(3, rows, LANES)
+    return [o.astype(np.uint32).view(np.int32) for o in out]
+
+
+@pytest.mark.parametrize("per_lane", [8, 16, 32])
+@pytest.mark.parametrize("kind", ["ties4", "bit31"])
+def test_the_kernels_register_and_lane_schedule_equals_the_plain_version(kind, per_lane):
+    """The kernel's layout and its two exchange rules (one compare per
+    register pair, a flipped compare per shuffled element), modelled in
+    numpy at 16 elements per lane as built and at 8 and 32, equal the plain
+    version bitwise; on the card phase 25 of chip_smoke.py holds the kernel
+    itself to it."""
+    words = _rule_inputs(kind)
+    t = [torch.from_numpy(w) for w in words]
+    for rounds in (7, 13, 71):
+        got = _kernel_schedule(words, rounds, per_lane)
+        for g, w in zip(got, tb.bitonic_rounds_plain(*t, rounds), strict=True):
+            np.testing.assert_array_equal(g, w.numpy())
