@@ -197,11 +197,20 @@ Phases, each printing one JSON line:
    operations bounds (5 integer operations per element and round at 64
    per clock per SM, from the card's SM count and maximum SM clock), the
    rate, `bound_by` and `bound_fraction` (the bound over the back-to-back
-   ms).
+   ms);
+26. bench: `python3 bench_torch.py --runs 3` (the port's headline bench,
+   the counterpart of `bench.py`) in a process of its own: it must exit 0
+   with exactly one stdout line of the four keys whose value is the median
+   of its runs, every selftest case true, the dist smoke equal to the
+   single-card run, its stream n equal to phase 11's and its 1024-merge
+   list and counts hashing to phase 11's first 1024, and each of the six
+   JAX kernels' counterparts (both modes of the merge) launched; the
+   median, min and max merges/s, each run's, and the three tokenize rows.
 
 The launch counts of the kernels' line are the sums over the main-path
 runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
-21's main and 2^25 runs, and phases 22-24), each counted from 0; the
+21's main and 2^25 runs, phases 22-24, and the bench's run in phase 26
+after its selftest), each counted from 0; the
 explicit-probe mode runs on the selftest's path only, and
 `bitonic_rounds`, which no training or tokenize path calls, on phase
 25's run of the microbenchmark.
@@ -212,7 +221,6 @@ exits non-zero before printing anything.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import statistics
@@ -225,6 +233,18 @@ from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
+
+# the bench's helpers; the scripts and tests import them from here too
+from bench_torch import (  # noqa: F401
+    PROBE_LESS,
+    TOKENIZE_KERNELS,
+    TRAIN_KERNELS,
+    nvidia_smi_line,
+    pass_rates,
+    sha_pair,
+    synth_corpus,
+    synth_vocab_64k,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 L2_BYTES = 50 << 20  # H100 L2 cache
@@ -243,7 +263,6 @@ CERT16 = "docs/artifacts/certificate_validation_cpu16mb.json"
 REF_HANGUL = "docs/artifacts/ref_hangul_cpu16mb.json"  # the JAX package's lists in both Hangul modes
 UNICODE_EXPORTS = 97  # the native decoder's exports bound by unicode/cpp_backend.py
 REPO = Path(__file__).resolve().parent
-DEVICE_PASSES = 5  # chained passes behind the device MB/s
 PALLAS = "gpu_bpe_tpu/ops/pallas_kernels.py"
 CSRC = "gpu_bpe_tpu_torch/ops/csrc"
 KERNELS = {
@@ -256,7 +275,6 @@ KERNELS = {
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
     "bitonic_rounds": (f"{CSRC}/bitonic_rounds.cu", "scripts/microbench_bitonic.py:44"),
 }
-PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
 KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
 KERNELS[EXPLICIT_PROBES] = KERNELS["merge_compact_tracked"]
@@ -267,12 +285,10 @@ FILES_CHUNK = 4 << 20  # 16 chunks of the 64 MB file, each with a carry
 CKPT_BATCH = 128  # merges per batch of the checkpointed run, a checkpoint after each
 CKPT_MERGES = 512  # merges before the resume (phase 4 goes on to MERGES)
 CLI_TIMEOUT_S = 300
-TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
 MULTI_SEG_MERGES = 256  # the multi-merge run on phase 12's no-dedup stream
 MULTI_PAIRS = 5  # runs of each trainer in phase 21's paired timing
 DIST_RANKS = 2  # the ranks of the two-rank phase, both on the one card
 DIST_TIMEOUT_S = 300  # the two-rank phase's process group and processes
-TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
 DEVICES_PASS_BYTES = 1 << 20  # phase 23's passes over the 16 MB corpus, two entries in the device list
 SOAK_SCRIPT = "scripts/torch_soak_fuzz.py"
 SOAK_SEED0 = 1000  # phase 24: tokenizer seeds SOAK_SEED0.., trainer seeds 1,000,000 above them
@@ -290,40 +306,13 @@ BITONIC_FULL_ROUNDS = 153  # a full bitonic sort of one 2^17 segment, also check
 # (1), six selects (6): 10 per pair of elements
 BITONIC_OPS = 5
 INT32_LANES_PER_SM = 64  # 32-bit integer add, compare, select and logic results per clock per SM (cc 9.0)
+BENCH_SCRIPT = "bench_torch.py"
+BENCH_RUNS = 3  # timed training runs of phase 26's bench
+BENCH_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def synth_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 120_000) -> bytes:
-    """bench.py's deterministic Zipfian text over a large synthetic word
-    vocabulary (syllable compositions, Zipf rank-frequency sampling)."""
-    rng = np.random.default_rng(seed)
-    syllables = np.array(
-        [a + b for a in "btkdsmnlrpfgvz" for b in ("a", "e", "i", "o", "u", "ar", "en", "il", "on", "ust")]
-        + ["tion", "ing", "er", "ed", "ly", "pre", "con", "anti", "ment", "ness"],
-        dtype=object,
-    )
-    n_syll = rng.integers(1, 5, size=vocab_size)
-    words = []
-    for k in n_syll:
-        idx = rng.integers(0, len(syllables), size=k)
-        words.append("".join(syllables[i] for i in idx))
-    words = np.array(words, dtype=object)
-    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
-    probs = ranks**-1.05
-    probs /= probs.sum()
-    parts = []
-    size = 0
-    while size < n_bytes:
-        idx = rng.choice(vocab_size, size=65536, p=probs)
-        text = " ".join(words[i] for i in idx)
-        lines = [text[i : i + 80] for i in range(0, len(text), 80)]
-        blob = ("\n".join(lines) + "\n").encode()
-        parts.append(blob)
-        size += len(blob)
-    return b"".join(parts)[:n_bytes]
 
 
 def synth_hangul_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 20_000) -> bytes:
@@ -359,40 +348,6 @@ def synth_hangul_corpus(n_bytes: int, seed: int = 0, vocab_size: int = 20_000) -
         lines.append(line)
     out = b"\n".join(lines)
     return out[: out.rfind(b"\n", 0, n_bytes) + 1]
-
-
-def synth_vocab_64k(corpus: bytes) -> list[bytes]:
-    """bench.py's deterministic 65,536-entry vocab: the corpus's frequent
-    words and their prefixes (2..20 bytes), padded with numeric strings."""
-    vocab: list[bytes] = [bytes([b]) for b in range(256)]
-    seen = set(vocab)
-    freq = Counter(corpus.split())
-    for w, _ in freq.most_common():
-        if len(vocab) >= 65536:
-            break
-        for end in range(2, min(len(w), 20) + 1):
-            cand = w[:end]
-            if cand not in seen:
-                seen.add(cand)
-                vocab.append(cand)
-                if len(vocab) >= 65536:
-                    break
-    k = 0
-    while len(vocab) < 65536:
-        cand = b"#%d" % k
-        if cand not in seen:
-            seen.add(cand)
-            vocab.append(cand)
-        k += 1
-    return vocab
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_in_turns(torch, fns, reps: int) -> list[float]:
@@ -841,31 +796,6 @@ def recorded_calls(module, names=TOKENIZE_KERNELS, keep=None):
             setattr(module, name, fn)
 
 
-def pass_rates(torch, tok, corpus: bytes) -> dict:
-    """Device MB/s: DEVICE_PASSES passes on a buffer already on the card,
-    enqueued back to back and timed by CUDA events (each pass still reads
-    its rank-space candidate count on the host); wall MB/s: encode_bytes
-    end to end (upload, pass, host copy)."""
-    n = len(corpus)
-    buf = np.zeros(tok.capacity(n), np.uint8)
-    buf[:n] = np.frombuffer(corpus, np.uint8)
-    dbuf = torch.from_numpy(buf).cuda()
-    tok.encode_pass(dbuf, n)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(DEVICE_PASSES):
-        tok.encode_pass(dbuf, n)
-    end.record()
-    end.synchronize()
-    pass_ms = start.elapsed_time(end) / DEVICE_PASSES
-    t0 = time.perf_counter()
-    tok.encode_bytes(corpus)
-    wall_s = time.perf_counter() - t0
-    return {"pass_ms": pass_ms, "device_mb_per_s": n / (pass_ms / 1e3) / 1e6,
-            "wall_s": wall_s, "wall_mb_per_s": n / wall_s / 1e6}
-
-
 def _u32_mask(n: int, rng, keep_p: float, hi: int):
     v = rng.integers(0, hi, size=n, dtype=np.uint64).astype(np.uint32)
     v[rng.random(n) >= keep_p] = 0xFFFFFFFF
@@ -1140,14 +1070,6 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
     return rows
 
 
-def sha_pair(res) -> dict:
-    """The certificate recipe's hashes of a merge list and its counts
-    (``scripts/validate_certificate.py``)."""
-    blob = json.dumps([[a, b, c] for a, b, c in res.merges]).encode()
-    return {"sha_merges": hashlib.sha256(blob).hexdigest(),
-            "sha_counts": hashlib.sha256(json.dumps(res.merge_counts).encode()).hexdigest()}
-
-
 def recount_timing(torch, ts, padded) -> list:
     """One segmented and one monolithic recount of the no-dedup stream cut
     to capacities 2^20..2^25 (3/4 full, or all of it), timed in turns
@@ -1249,8 +1171,8 @@ def encode_path_cases(corpus: bytes, vocab8k, vocab64k) -> list:
 def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -> dict:
     """Phases 11-13: the public API on the card. Adds each run's kernel
     launches to ``launches`` and the recount's compact_mask check to
-    ``rows``; returns phase 11's training result and tokenizer, phase 12's
-    training result and phase 13's ids."""
+    ``rows``; returns phase 11's training result, tokenizer and stream n,
+    phase 12's training result and phase 13's ids."""
     from gpu_bpe_tpu_torch import BPETokenizer, PreTokenizer, Tokenizer, Trainer, api
     from gpu_bpe_tpu_torch.core import BPEModel, GreedyTrieEncoder, read_dxft
     from gpu_bpe_tpu_torch.ops import kernels
@@ -1384,7 +1306,7 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -
             raise AssertionError(f"tokenize path {label} failed: {row}")
         for k, v in run_launches.items():
             launches[k] += v
-    return {"train": res11, "tokenizer": tok11, "nodedup": res12, "ids": ids13}
+    return {"train": res11, "tokenizer": tok11, "nodedup": res12, "ids": ids13, "stream_n": u_stream.n}
 
 
 @contextmanager
@@ -2160,6 +2082,54 @@ def bitonic_phase(torch, smi: str, launches: dict, rows: dict) -> None:
     rows["bitonic_rounds"] = row
 
 
+def bench_phase(torch, api_out: dict, launches: dict, smi: str) -> None:
+    """Phase 26: ``bench_torch.py --runs BENCH_RUNS`` in a process of its
+    own. It must exit 0 with one stdout line of the four keys whose value is
+    the median of its runs, every selftest case true, the dist smoke equal,
+    phase 11's stream n and phase 11's first MERGES merges and counts, and
+    every kernel launched. Adds its launches to ``launches``."""
+    from types import SimpleNamespace
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, str(REPO / BENCH_SCRIPT), "--runs", str(BENCH_RUNS)], cwd=REPO,
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"{BENCH_SCRIPT} exited with {p.returncode}:\n{p.stderr[-4000:]}")
+    out = p.stdout.splitlines()
+    lines = {}
+    for text in p.stderr.splitlines():
+        if text.startswith("{"):
+            obj = json.loads(text)
+            lines.setdefault(obj["metric"], []).append(obj)
+    head = json.loads(out[0]) if len(out) == 1 else {}
+    runs = lines["train_runs"][0]
+    res11 = api_out["train"]
+    want = sha_pair(SimpleNamespace(merges=res11.merges[:MERGES], merge_counts=res11.merge_counts[:MERGES]))
+    run_launches = lines["kernel_launches"][0]["value"]
+    checks = {
+        "one_stdout_line": set(head) == {"metric", "value", "unit", "vs_baseline"}
+        and head["metric"] == "train_merges_per_sec" and head["value"] == runs["median"] > 0,
+        "selftest": all(lines["kernel_selftest"][0]["value"].values()),
+        "dist_smoke": lines["dist_smoke"][0]["matches_single_chip"],
+        "stream_n_eq_phase11": lines["corpus"][0]["stream_n"] == api_out["stream_n"],
+        "merges_eq_phase11": runs["merges"] == MERGES and {k: runs[k] for k in want} == want,
+        "kernels_launched": set(run_launches) == {*TRAIN_KERNELS, PROBE_LESS, *TOKENIZE_KERNELS}
+        and min(run_launches.values()) > 0,
+    }
+    emit({"phase": "bench", "script": BENCH_SCRIPT, "seconds": secs, "line": head, "runs": runs["runs"],
+          "median": runs["median"], "min": runs["min"], "max": runs["max"],
+          "merges_per_sec": [r["merges_per_sec"] for r in lines["train_run"]],
+          "stream_n": lines["corpus"][0]["stream_n"], "dedup_ratio": lines["corpus"][0]["dedup_ratio"],
+          "tokenize": [{k: v for k, v in r.items() if k not in ("metric", "launches")}
+                       for r in lines["tokenize_mb_per_sec"]],
+          "launches": run_launches, **checks, "nvidia_smi": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"{BENCH_SCRIPT}: {checks}\n{p.stderr[-4000:]}")
+    for k, v in run_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -2341,6 +2311,7 @@ def main() -> int:
     tokenize_devices_phase(torch, corpus, api_out, vocabs["8192"], ids["8192"], launches)
     soak_phase(torch, smi, launches)
     bitonic_phase(torch, smi, launches, rows)
+    bench_phase(torch, api_out, launches, smi)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

@@ -77,15 +77,18 @@ def test_import_leaves_out_jax_and_the_reference_package():
     """Every module of the port, found by walking the package (a new
     subpackage is covered without a change here), imports neither JAX nor
     the JAX package: both are blocked, and none is loaded at the end; nor
-    do ``scripts/torch_soak_fuzz.py``, which makes a case of the soak, and
-    ``scripts/torch_microbench_bitonic.py``, which makes its inputs. The
-    optional ``regex`` module is blocked too, and the Unicode library,
-    segmentation included, still runs."""
+    do ``scripts/torch_soak_fuzz.py``, which makes a case of the soak,
+    ``scripts/torch_microbench_bitonic.py``, which makes its inputs, and the
+    headline bench ``bench_torch.py`` and its vocab sweep
+    ``scripts/torch_bench_tokenize_vocabs.py``, each run through its
+    ``main`` on the CPU (``bench.py`` is blocked as well). The optional
+    ``regex`` module is blocked too, and the Unicode library, segmentation
+    included, still runs."""
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'gpu_bpe_tpu', 'regex'):\n"
+        "        if name.split('.')[0] in ('jax', 'gpu_bpe_tpu', 'regex', 'bench'):\n"
         "            raise ImportError(f'blocked: {name}')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import gpu_bpe_tpu_torch\n"
@@ -117,8 +120,21 @@ def test_import_leaves_out_jax_and_the_reference_package():
         "bench = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(bench)\n"
         "assert [tuple(t.shape) for t in bench.script_inputs(1, 'cpu')] == [(1024, 128)] * 3\n"
+        "import contextlib, io, tempfile\n"
+        "import bench_torch\n"
+        "with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):\n"
+        "    line = bench_torch.main(['--device', 'cpu', '--selftest-only'])['line']\n"
+        "assert line == {'metric': 'kernel_selftest_only', 'value': 'pass'}\n"
+        "spec = importlib.util.spec_from_file_location('torch_bench_tokenize_vocabs', "
+        "'scripts/torch_bench_tokenize_vocabs.py')\n"
+        "sweep = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(sweep)\n"
+        "with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):\n"
+        "    art = sweep.main(['--device', 'cpu', '--sizes', '257', '--corpus-mb', '1', '--passes', '1', "
+        "'--out', tmp + '/r.json', '--cache', tmp])\n"
+        "assert [r['vocab'] for r in art['rows']] == [257]\n"
         "bad = [m for m in sys.modules if m in ('jax', 'gpu_bpe_tpu', 'regex') "
-        "or m.startswith(('jax.', 'gpu_bpe_tpu.', 'regex.'))]\n"
+        "or m == 'bench' or m.startswith(('jax.', 'gpu_bpe_tpu.', 'regex.'))]\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
