@@ -1087,7 +1087,7 @@ def recount_timing(torch, ts, padded) -> list:
         pair, valid = ts._pair_ids(sym, n)
         w64 = torch.where(valid, w.to(torch.int64), 0)
         fns = {"monolithic": lambda: ts._recount_monolithic(pair, w64),
-               "segmented": lambda: ts._full_recount_segmented(pair, w64, cap)}
+               "segmented": lambda: ts._full_recount_segmented(pair, w64, cap)[1]}
         outs = {name: fn() for name, fn in fns.items()}
         picks = {name: (int(o[0]), int(o[1]), int(o[4])) for name, o in outs.items()}
         if len(set(picks.values())) != 1:

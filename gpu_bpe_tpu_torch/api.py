@@ -28,6 +28,7 @@ from .core.trainer_ref import ProgressFn, ReferenceTrainer, TrainingResult, byte
 from .models.bpe import BPETokenizer
 from .pretok import PreTokenizer, tag_word_boundaries_bytes
 from .utils import get_logger, log_progress
+from .utils.timing import span
 
 logger = get_logger()
 
@@ -101,17 +102,21 @@ def train(
     if isinstance(corpus, str):
         corpus = corpus.encode("utf-8")
 
-    if config.pre_tokenize:
-        data, starts = PreTokenizer().pre_tokenize_bytes(corpus)
-    else:
-        data, starts = corpus, None
     if on_progress is None and config.show_progress:
         on_progress = log_progress
 
-    with _profile_ctx(config):
+    with _profile_ctx(config), span("train.job") as job:
+        if config.pre_tokenize:
+            with span("train.pretokenize") as sp:
+                sp.note(bytes=len(corpus))
+                data, starts = PreTokenizer().pre_tokenize_bytes(corpus)
+        else:
+            data, starts = corpus, None
         result = _train_backend(config, data, starts, on_progress)
-    tokenizer = BPETokenizer.from_training_result(
-        result, backend="cpu" if config.backend == "cpu" else "cuda", device=config.device)
+        with span("train.build"):
+            tokenizer = BPETokenizer.from_training_result(
+                result, backend="cpu" if config.backend == "cpu" else "cuda", device=config.device)
+        job.note(merges=len(result.merges), symbols=len(data))
     return tokenizer, result
 
 
@@ -154,7 +159,7 @@ def train_files(
                 stream.n, stream.total_bytes, stream.dedup_ratio)
     if on_progress is None and config.show_progress:
         on_progress = log_progress
-    with _profile_ctx(config):
+    with _profile_ctx(config), span("train.job") as job:
         if config.backend == "dist":
             from .parallel import DistributedTrainer, one_rank_group
 
@@ -166,24 +171,40 @@ def train_files(
 
             trainer = Trainer(batch_merges=config.batch_merges, device=device)
             result = trainer.train_stream(stream, config.vocab_size, on_progress)
-    tokenizer = BPETokenizer.from_training_result(result, backend="cuda", device=config.device)
+        with span("train.build"):
+            tokenizer = BPETokenizer.from_training_result(result, backend="cuda", device=config.device)
+        job.note(merges=len(result.merges), symbols=stream.total_bytes)
     return tokenizer, result
 
 
+@contextlib.contextmanager
 def _profile_ctx(config: TrainConfig):
-    """A torch.profiler trace of training written to ``profile_dir`` (view
-    with TensorBoard or chrome://tracing)."""
+    """A torch.profiler trace of the job written to ``profile_dir`` (view
+    with TensorBoard or chrome://tracing); tracing is on meanwhile, so the
+    trace names the program's spans beside the kernels. Where tracing was
+    off, it is off again afterwards and the job's spans are dropped."""
     if not config.profile_dir:
-        return contextlib.nullcontext()
+        yield
+        return
     import torch
+
+    from .utils import timing
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if config.backend != "cpu" and config.device != "cpu":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     logger.info("capturing a torch.profiler trace to %s", config.profile_dir)
-    return torch.profiler.profile(
-        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(config.profile_dir),
-    )
+    was_on = timing.enable()
+    kept = len(timing.spans())
+    try:
+        with torch.profiler.profile(
+            activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(config.profile_dir),
+        ):
+            yield
+    finally:
+        if not was_on:
+            timing.disable()
+            timing.clear(kept)
 
 
 def _train_backend(config: TrainConfig, data, starts, on_progress) -> TrainingResult:
@@ -216,7 +237,9 @@ def _byte_stream(data: bytes):
     starts, one symbol per byte, weight 1, no dedup."""
     from .ops import SymbolStream
 
-    symbols = tag_word_boundaries_bytes(bytes_to_symbols(data))
+    with span("train.byte_stream") as sp:
+        symbols = tag_word_boundaries_bytes(bytes_to_symbols(data))
+        sp.note(symbols=len(symbols))
     return SymbolStream(symbols=symbols, weights=np.ones(len(symbols), np.int32), n=len(symbols),
                         total_bytes=len(symbols))
 

@@ -36,6 +36,7 @@ import torch
 
 from ..constants import INVALID_TOKEN, adaptive_chunk_size
 from ..core.encoder_ref import decode_tokens
+from ..utils.timing import span
 from .kernels import _to_i32, compact_mask, compact_valid, expand_to_mask
 from .stab_kernels import NO_GROUP, overlay_fit
 from .trainer import resolve_device
@@ -486,7 +487,8 @@ def _stab_match(data: torch.Tensor, stab_rows: _StabTables, input_len: int, chun
     prim = torch.where(mask, gid_pos, 0xFFFFFFFF)
     extras = [iota] + [w for pair in sw_bytes_pos for w in pair]
     outs, cnt = compact_mask(_i32(prim), [_i32(e) for e in extras])
-    cnt = int(cnt)
+    with span("tokenize.read", "rank_count"):
+        cnt = int(cnt)
     cap_small = min(n, max(n >> 5, _RANK_CAP_FLOOR))
     cap_big = min(n, max(n >> 3, _RANK_CAP_FLOOR))
     cap = next((c for c in (cap_small, cap_big) if cnt <= c), None)
@@ -629,7 +631,9 @@ def chunk_walk_gather(match_id, match_len, data, input_len: int, chunk_size: int
     pos = chunk_start
     for col in range(chunk_size):
         active = pos < chunk_end
-        if not bool(active.any()):
+        with span("tokenize.read", "gather_step"):
+            more = bool(active.any())
+        if not more:
             break
         safe = torch.clamp(pos, max=n - 1)
         toks[:, col] = torch.where(active, tok_all[safe], _PAD_TOKEN)
@@ -735,52 +739,61 @@ class Tokenizer:
         int32 ``[len(buf)]`` whose first ``total`` entries are the token
         ids, ``total`` a 0-d int64 tensor."""
         stab_rows, dense = self._on_device[buf.device]
-        mid, mlen = build_match_table(buf, self.tables, stab_rows, dense, input_len,
-                                      self.chunk_size, self.rank_mode)
+        with span("tokenize.match_table") as sp:
+            sp.note(stab=int(stab_rows is not None))
+            mid, mlen = build_match_table(buf, self.tables, stab_rows, dense, input_len,
+                                          self.chunk_size, self.rank_mode)
         walk = chunk_walk if self.tables.max_token_len <= _MAX_WALK_STEP else chunk_walk_gather
-        tokens = walk(mid, mlen, buf, input_len, self.chunk_size)
+        with span("tokenize.walk"):
+            tokens = walk(mid, mlen, buf, input_len, self.chunk_size)
         return compact_valid(_i32(tokens.reshape(-1)))
 
     def encode_bytes(self, data: bytes) -> np.ndarray:
         """Token ids of ``data`` (uint32). The passes go to ``devices`` in
         turn; the oldest pass in flight is read back once the window of
         ``max(2, len(devices) + 1)`` passes is full."""
-        data = bytes(data)
-        if not data:
-            return np.zeros(0, dtype=np.uint32)
-        window = max(2, len(self.devices) + 1)
-        parts: list[np.ndarray] = []
-        in_flight: list[tuple] = []
-        for i, off in enumerate(range(0, len(data), self.max_pass_bytes)):
-            dev = self.devices[i % len(self.devices)]
-            in_flight.append(self._start_pass(data[off : off + self.max_pass_bytes], dev))
-            if len(in_flight) >= window:
-                parts.append(self._finish_pass(*in_flight.pop(0)))
-        parts.extend(self._finish_pass(*p) for p in in_flight)
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+        with span("tokenize.call") as call:
+            with span("tokenize.input"):
+                data = bytes(data)
+            call.note(bytes=len(data))
+            if not data:
+                return np.zeros(0, dtype=np.uint32)
+            window = max(2, len(self.devices) + 1)
+            parts: list[np.ndarray] = []
+            in_flight: list[tuple] = []
+            for i, off in enumerate(range(0, len(data), self.max_pass_bytes)):
+                dev = self.devices[i % len(self.devices)]
+                in_flight.append(self._start_pass(data[off : off + self.max_pass_bytes], dev))
+                if len(in_flight) >= window:
+                    parts.append(self._finish_pass(*in_flight.pop(0)))
+            parts.extend(self._finish_pass(*p) for p in in_flight)
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _start_pass(self, data: bytes, device: torch.device):
         """Enqueue one pass on ``device``: its ids as int16 bits (ids are
         16-bit) and its total, whose copy to the host is started without
         waiting (into pinned memory, with an event, on a card)."""
         n = len(data)
-        buf = np.zeros(self.capacity(n), dtype=np.uint8)
-        buf[:n] = np.frombuffer(data, dtype=np.uint8)
-        ids, total = self.encode_pass(torch.from_numpy(buf).to(device), n)
-        ids16 = torch.where(ids >= 0x8000, ids - 0x10000, ids).to(torch.int16)
-        if device.type != "cuda":
-            return ids16, total, None
-        total_host = torch.empty((), dtype=torch.int64, pin_memory=True)
-        total_host.copy_(total, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(device))
-        return ids16, total_host, done
+        with span("tokenize.pass") as sp:
+            sp.note(bytes=n)
+            buf = np.zeros(self.capacity(n), dtype=np.uint8)
+            buf[:n] = np.frombuffer(data, dtype=np.uint8)
+            ids, total = self.encode_pass(torch.from_numpy(buf).to(device), n)
+            ids16 = torch.where(ids >= 0x8000, ids - 0x10000, ids).to(torch.int16)
+            if device.type != "cuda":
+                return ids16, total, None
+            total_host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            total_host.copy_(total, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            return ids16, total_host, done
 
     @staticmethod
     def _finish_pass(ids16: torch.Tensor, total: torch.Tensor, done) -> np.ndarray:
-        if done is not None:
-            done.synchronize()
-        return ids16[: int(total)].cpu().numpy().view(np.uint16).astype(np.uint32)
+        with span("tokenize.read", "ids"):
+            if done is not None:
+                done.synchronize()
+            return ids16[: int(total)].cpu().numpy().view(np.uint16).astype(np.uint32)
 
     def decode(self, tokens) -> bytes:
         return decode_tokens(tokens, self.vocab)

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..constants import BATCH_MERGES, TOKEN_MASK, WORD_START_BIT
+from ..utils.timing import span
 from .kernels import (
     I32_MAX,
     INVALID,
@@ -250,7 +251,8 @@ def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
     differ, which moves certificate windows, never a merge.
 
     The tier is chosen on the host: one read of the summary count per
-    recount."""
+    recount. Returns (tier, recount): the ``RECOUNTS`` key it bumped, and
+    the recount."""
     m = _SEG_RECOUNT_M
     sp, order = torch.sort(pair.reshape(cap // m, m), dim=1)
     rt = _run_totals_reset(sp, torch.gather(w.reshape(cap // m, m), 1, order))
@@ -261,7 +263,8 @@ def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
     (_, sp_c, rt_c), total = compact_mask(
         prim, (_to_i32(sp.reshape(-1)).to(torch.int32), flat_rt.to(torch.int32)),
     )
-    cnt = int(total)
+    with span("train.read", "seg_recount"):
+        cnt = int(total)
     HOST_READS["seg_recount"] += 1
     for rcap, tier in ((cap >> 3, "seg_cap/8"), (cap >> 1, "seg_cap/2")):
         if cnt <= rcap:
@@ -269,22 +272,27 @@ def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
             live = torch.arange(rcap, device=pair.device) < cnt
             sp2 = torch.where(live, sp_c[:rcap].to(torch.int64) & 0xFFFFFFFF, 0)
             c2 = torch.where(live, rt_c[:rcap].to(torch.int64), 0)
-            return _recount_monolithic(sp2, c2)
+            return tier, _recount_monolithic(sp2, c2)
     RECOUNTS["seg_fallback"] += 1
-    return _recount_monolithic(pair, w)
+    return "seg_fallback", _recount_monolithic(pair, w)
 
 
 def _full_recount_impl(symbols: torch.Tensor, weights: torch.Tensor, n):
     """Exact full recount: (best_pair, count, cand, counts, theta). From
     capacity ``_SEG_RECOUNT_MIN_CAP`` on (a multiple of ``_SEG_RECOUNT_M``)
-    it runs the segmented scheme, below it one monolithic sort."""
-    pair, valid = _pair_ids(symbols, n)
-    w = torch.where(valid, weights.to(torch.int64), 0)
-    cap = symbols.shape[0]
-    if cap >= _SEG_RECOUNT_MIN_CAP and cap % _SEG_RECOUNT_M == 0:
-        return _full_recount_segmented(pair, w, cap)
-    RECOUNTS["monolithic"] += 1
-    return _recount_monolithic(pair, w)
+    it runs the segmented scheme, below it one monolithic sort. The span's
+    ``tier`` is the ``RECOUNTS`` key the recount bumped."""
+    with span("train.recount") as sp:
+        pair, valid = _pair_ids(symbols, n)
+        w = torch.where(valid, weights.to(torch.int64), 0)
+        cap = symbols.shape[0]
+        if cap >= _SEG_RECOUNT_MIN_CAP and cap % _SEG_RECOUNT_M == 0:
+            tier, out = _full_recount_segmented(pair, w, cap)
+        else:
+            tier, out = "monolithic", _recount_monolithic(pair, w)
+            RECOUNTS[tier] += 1
+        sp.note(tier=tier)
+        return out
 
 
 def _ensure_pending(st: TrainState, certified: bool) -> TrainState:
@@ -421,7 +429,9 @@ def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
     cand2, counts3, log2, sout = window_post(
         st.cand, st.cand_counts, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
     )
-    host = torch.cat([sout, n_new.reshape(1), n_aff.reshape(1)]).tolist()
+    with span("train.read", "merge"):
+        host = torch.cat([sout, n_new.reshape(1), n_aff.reshape(1)]).tolist()
+    HOST_READS["merge"] += 1
     if host[9] > N_PROBES:
         # rare wide merge: nothing was probed; recount the window densely
         # and redo the window update with those counts
@@ -432,7 +442,8 @@ def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
         cand2, counts3, log2, sout = window_post(
             st.cand, counts_sel, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
         )
-        host[:8] = sout.tolist()
+        with span("train.read", "wide"):
+            host[:8] = sout.tolist()
         HOST_READS["wide"] += 1
     pend_cert = sout[5]
     if force_recount:  # ground truth: never carry a certificate
@@ -565,17 +576,20 @@ def _multi_batch(st: TrainState, batch_merges: int, recount_budget: int | None, 
     other live slot's exact count is what the sparse updates would have
     kept). With ``force_recount`` no iteration is certified."""
 
-    def read(st, n_aff):
+    def read(st, n_aff, site):
         """The window's device decision and, on the host, [merges_done,
-        early_stop, n, recounts, theta, ub_new, next_id, n_aff, *decision]."""
+        early_stop, n, recounts, theta, ub_new, next_id, n_aff, *decision];
+        one host read, counted under ``site``."""
         dec = _decision(st.cand, st.cand_counts)
         head = torch.stack([st.merges_done, st.early_stop, st.n, st.recounts, st.theta, st.ub_new, st.next_id,
                             n_aff])
-        return dec, torch.cat([head, dec]).tolist()
+        with span("train.read", site):
+            h = torch.cat([head, dec]).tolist()
+        HOST_READS[site] += 1
+        return dec, h
 
     cap = st.symbols.shape[0]
-    dec, h = read(st, torch.zeros_like(st.n))
-    HOST_READS["batch"] += 1
+    dec, h = read(st, torch.zeros_like(st.n), "batch")
     recounts0 = h[3]
     md = duals = 0
     while True:
@@ -589,15 +603,13 @@ def _multi_batch(st: TrainState, batch_merges: int, recount_budget: int | None, 
             st = replace(st, early_stop=torch.ones_like(st.early_stop))
             break
         st, n_aff = _one_merge(st, dec, plan, md)
-        dec, h = read(st, n_aff)
-        HOST_READS["iteration"] += 1
+        dec, h = read(st, n_aff, "iteration")
         if h[7] > N_PROBES:
             # rare wide merge: nothing was probed; recount the whole window
             one = torch.ones_like(st.n)
             counts, _, _ = _post_counts(st.cand, st.cand_counts, one, one, one, st.symbols, st.weights, st.n)
             st = replace(st, cand_counts=counts)
-            dec, h = read(st, n_aff)
-            HOST_READS["wide"] += 1
+            dec, h = read(st, n_aff, "wide")
         duals += max(h[0] - md - 1, 0)
         md = h[0]
     return replace(st, duals=st.duals + duals)
@@ -623,8 +635,9 @@ def train_batch(
     if multi_merge:
         return _multi_batch(st, batch_merges, recount_budget, force_recount)
     cap = st.symbols.shape[0]
-    early, n, cert, recounts = (bool(x) if i in (0, 2) else int(x) for i, x in enumerate(
-        torch.stack([st.early_stop, st.n, st.pend_cert, st.recounts]).tolist()))
+    with span("train.read", "batch"):
+        early, n, cert, recounts = (bool(x) if i in (0, 2) else int(x) for i, x in enumerate(
+            torch.stack([st.early_stop, st.n, st.pend_cert, st.recounts]).tolist()))
     HOST_READS["batch"] += 1
     recounts0 = recounts
     md = 0
@@ -641,7 +654,6 @@ def train_batch(
             cert = True
         while go() and cert:
             st, host = _one_merge_fused_certified(st, force_recount)
-            HOST_READS["merge"] += 1
             md, early, cert, n = host[0], bool(host[2]), bool(host[5]), host[8]
     return st
 

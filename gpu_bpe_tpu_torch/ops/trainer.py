@@ -20,6 +20,7 @@ import torch
 from ..constants import BATCH_MERGES, TOKEN_MASK
 from ..core.trainer_ref import ProgressFn, TrainingResult
 from ..core.vocab import Vocab
+from ..utils.timing import span
 from .ingest import SymbolStream, make_stream, pad_stream
 from .train_step import HOST_READS, _pack_summary, init_state, train_batch
 
@@ -124,14 +125,16 @@ class Trainer:
                 logger.info("resumed from %s at %d merges", checkpoint_path, len(merges))
             else:
                 logger.warning("checkpoint %s does not match the corpus or the vocab; ignoring it", checkpoint_path)
-        if state is None:
-            padded = pad_stream(stream)
-            state = init_state(
-                padded.symbols, padded.weights, stream.n, self.vocab.next_token_id, self.device,
-            )
+        with span("train.upload") as sp:
+            if state is None:
+                padded = pad_stream(stream)
+                state = init_state(
+                    padded.symbols, padded.weights, stream.n, self.vocab.next_token_id, self.device,
+                )
+            sp.note(capacity=state.symbols.shape[0])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # upload outside the clock
         merges_needed = max(target_vocab_size - self.vocab.size, 0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # upload outside the clock
         start = time.perf_counter()
         total_done = 0
         early_stop = False
@@ -153,8 +156,11 @@ class Trainer:
         while total_done < merges_needed and not early_stop:
             batch = min(self.batch_merges, merges_needed - total_done)
             cap = state.symbols.shape[0]
-            state = train_batch(state, batch, _recount_budget(cap), self.force_recount, self.multi_merge)
-            packed = _pack_summary(state).cpu().numpy()  # the batch's one log read
+            with span("train.batch") as sp:
+                sp.note(merges=batch, capacity=cap)
+                state = train_batch(state, batch, _recount_budget(cap), self.force_recount, self.multi_merge)
+            with span("train.read", "summary"):
+                packed = _pack_summary(state).cpu().numpy()  # the batch's one log read
             HOST_READS["summary"] += 1
             log = packed[: BATCH_MERGES * 3].reshape(BATCH_MERGES, 3)
             duals_total, merges_done, n_now, early, recounts_total = (int(x) for x in packed[-5:])
@@ -217,7 +223,9 @@ class Trainer:
         on_progress: ProgressFn | None = None,
     ) -> TrainingResult:
         """Train from pre-tokenized bytes + word-start mask."""
-        stream = make_stream(data, word_starts, dedup=dedup)
+        with span("train.dedup") as sp:
+            stream = make_stream(data, word_starts, dedup=dedup)
+            sp.note(symbols=stream.n)
         if dedup and word_starts is not None:
             logger.info(
                 "dedup: %d -> %d symbols (%.1fx)", stream.total_bytes, stream.n, stream.dedup_ratio

@@ -15,8 +15,14 @@ multi-merge iteration) and adds ``duals``; the single-device runs add their
 host reads by site (``train_step.HOST_READS``) to ``host_reads``:
 
 * ``run``: merges, recounts, wall seconds and merges/s of the untraced run;
-* ``device``: device busy time (sum of kernel and copy times on the card)
-  of the traced run against its wall time, and the idle share;
+* ``device``: device busy time (the union of the device intervals: kernels,
+  copies and memsets, each overlap counted once) of the traced run against
+  its wall time, and the idle share;
+* ``idle_by_span``: the idle time of the traced run by the innermost
+  program span open on the host (``utils.timing``, on for the traced run:
+  ``train.batch`` and ``train.recount`` enqueue, ``train.read`` waits on
+  the card, ``train.upload`` uploads; ``outside`` is no span, as in the
+  data-parallel loop, which has none), in ms;
 * ``by_kernel``: device time and calls per kernel name, the largest first;
 * ``host_reads``: device-to-host copies, in total and per merge (each is a
   host sync of the Python merge loop; a segmented recount adds one, its
@@ -61,6 +67,7 @@ def main() -> int:
     from gpu_bpe_tpu_torch.ops import train_step as ts
     from gpu_bpe_tpu_torch.ops.ingest import make_stream
     from gpu_bpe_tpu_torch.pretok import byte_word_starts
+    from gpu_bpe_tpu_torch.utils import timing
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -89,11 +96,15 @@ def main() -> int:
         ts.HOST_READS.clear()
         if args.dist:
             dist_train.HOST_READS.clear()
+        timing.clear()
+        timing.enable()
         with torch.profiler.profile(activities=acts) as prof, counted_collectives() as coll:
-            t0 = time.perf_counter()
+            t0 = time.time_ns()  # the clock of the spans and of the profiler's events
             traced = make().train_stream(stream, target_vocab_size=target)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            t1 = time.time_ns()
+        timing.disable()
+        wall = (t1 - t0) / 1e9
         reads = dist_train.HOST_READS if args.dist else ts.HOST_READS
         extra = {"host_reads_by_site": dict(reads), "duals": traced.duals}
         if args.dist:
@@ -110,10 +121,15 @@ def main() -> int:
         row = by_kernel.setdefault(name, [0.0, 0])
         row[0] += t / 1e3
         row[1] += 1
-    busy_ms = sum(v[0] for v in by_kernel.values())
+    idle = timing.idle_by_span((t0, t1), [
+        (e.start_ns(), e.end_ns())
+        for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA])
+    busy_ms = wall * 1e3 - sum(idle.values()) / 1e6  # the union of the device intervals
     print(json.dumps({"phase": "device", "wall_ms": wall * 1e3, "busy_ms": busy_ms,
                       "idle_share": 1.0 - busy_ms / (wall * 1e3),
                       "merges": len(traced.merges)}), flush=True)
+    print(json.dumps({"phase": "idle_by_span", "ms": {
+        name or "outside": ns / 1e6 for name, ns in sorted(idle.items(), key=lambda kv: -kv[1])}}), flush=True)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:25]
     print(json.dumps({"phase": "by_kernel",
                       "rows": [{"name": k[:90], "ms": v[0], "calls": v[1]} for k, v in top]}),

@@ -6,6 +6,8 @@ lists and counts of ``api.train`` (port ``device="cpu"`` against JAX
 JSON, trie and DXFT bytes; token ids of ``encode`` (merge order) and
 ``encode_bulk`` (greedy)."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -153,6 +155,16 @@ def test_corpus_files_and_progress(tmp_path):
 
 
 def test_profile_dir_writes_a_trace(corpus, tmp_path):
+    """The trace names the program's spans beside the torch ops; tracing is
+    off again afterwards, as it was, and the job's spans are gone."""
+    from gpu_bpe_tpu_torch.utils import timing
+
+    assert not timing._on and timing.spans() == []
     api.train(corpus[:2000], api.TrainConfig(vocab_size=270, device="cpu", show_progress=False,
                                              profile_dir=str(tmp_path / "prof")))
-    assert any(p.name.endswith(".json") for p in (tmp_path / "prof").iterdir())
+    files = [p for p in (tmp_path / "prof").iterdir() if p.name.endswith(".json")]
+    assert files
+    names = {e.get("name") for p in files for e in json.loads(p.read_text())["traceEvents"]}
+    assert {"train.job", "train.pretokenize", "train.dedup", "train.upload", "train.batch", "train.read",
+            "train.recount", "train.build"} <= names
+    assert not timing._on and timing.spans() == []

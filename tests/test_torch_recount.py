@@ -56,11 +56,11 @@ def _pairs(rng, distinct: int, high: bool, w_hi: int):
 def _check(pair, w, tier):
     jb = jts._full_recount_segmented(jnp.asarray(pair), jnp.asarray(w), CAP)
     tp, tw = torch.from_numpy(pair.astype(np.int64)), torch.from_numpy(w.astype(np.int64))
-    seg = ts._full_recount_segmented(tp, tw, CAP)
+    got_tier, seg = ts._full_recount_segmented(tp, tw, CAP)
     mono = ts._recount_monolithic(tp, tw)
     for got in (seg, mono):
         assert int(got[0]) == int(jb[0]) and int(got[1]) == int(jb[1]) and int(got[4]) == int(jb[4])
-    assert ts.RECOUNTS == {tier: 1}
+    assert ts.RECOUNTS == {tier: 1} and got_tier == tier
     return seg
 
 
