@@ -72,7 +72,7 @@ DIST_MERGES = 64
 RUNS = 5
 DEVICE_PASSES = 5  # chained passes behind a device MB/s
 TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
-TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
+TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match")
 PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
 BENCH_KERNELS = (*TRAIN_KERNELS, PROBE_LESS, *TOKENIZE_KERNELS)
 

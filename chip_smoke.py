@@ -53,7 +53,9 @@ Phases, each printing one JSON line:
    16 MB for both vocabs; on a 1 MB cut the card's ids equal the port's CPU
    path and GreedyTrieEncoder; decode(ids) returns the corpus;
 10. tokenize kernel checks: each of compact_valid, compact_mask,
-   expand_to_mask and overlay_fit against its plain version on the card
+   expand_to_mask, overlay_fit and dense_match (the long-token tails of
+   both vocabs, over the stab join's result) against its plain version on
+   the card
    (tolerance 0; compaction outputs on their first `total` entries), on the
    inputs the main path gave it (recorded during phase 8) and on synthetic
    edge cases (all or none dropped, a ragged tail, ids >= 0x8000, random
@@ -71,7 +73,7 @@ Phases, each printing one JSON line:
    input_len - 1); at the main path's first call's shapes, the time of
    each and of one PyTorch call computing the same function (library),
    timed in turns, host_ms, device_ms and device_ops of both (each of the
-   four at most one memset and one kernel), the plain version's time, the
+   kernels at most one memset and one kernel), the plain version's time, the
    byte bound, and whether its inputs fit in the 50 MB L2 (so that the
    back-to-back timed calls may find them there); and compact_mask at the
    training recount's first call (2^25 entries, 2 extras, recorded in
@@ -205,7 +207,18 @@ Phases, each printing one JSON line:
    single-card run, its stream n equal to phase 11's and its 1024-merge
    list and counts hashing to phase 11's first 1024, and each of the six
    JAX kernels' counterparts (both modes of the merge) launched; the
-   median, min and max merges/s, each run's, and the three tokenize rows.
+   median, min and max merges/s, each run's, and the three tokenize rows;
+27. dense_match: `dense_match.cu` (the dense join's hash probe) against its
+   plain version on the card (tolerance 0) at phase 12's vocab cut to 1,024
+   entries (768 keys, no stab table) on the 16 MB corpus as one pass, with
+   the input ending inside a chunk, with a 500-byte chunk on a view 3 bytes
+   in, over an incoming match, with the table at its least size (colliding
+   probes) and too large for shared memory, at tile edges with 512-byte
+   chunks, on one partial tile, and on a vocab of 64-200-byte tokens; the
+   hits of each; at the 16 MB pass the kernel's ms beside the whole match
+   table's (in turns), host_ms, device_ms and device_ops (one kernel), the
+   plain version's ms, the byte bound and its fraction, the table's shape
+   and the pass's device and wall MB/s.
 
 The launch counts of the kernels' line are the sums over the main-path
 runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
@@ -213,7 +226,7 @@ runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
 after its selftest), each counted from 0; the
 explicit-probe mode runs on the selftest's path only, and
 `bitonic_rounds`, which no training or tokenize path calls, on phase
-25's run of the microbenchmark.
+25's run of the microbenchmark; phase 27's calls are not counted.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -274,6 +287,7 @@ KERNELS = {
     "expand_to_mask": (f"{CSRC}/expand_to_mask.cu", f"{PALLAS}:943"),
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
     "bitonic_rounds": (f"{CSRC}/bitonic_rounds.cu", "scripts/microbench_bitonic.py:44"),
+    "dense_match": (f"{CSRC}/dense_match.cu", "none: own design (the dense join is plain jnp)"),
 }
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
 KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
@@ -902,7 +916,7 @@ def overlay_edge_cases(rng, tile: int) -> list:
     return out
 
 
-def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
+def tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, dev) -> dict:
     """Phase 10: each tokenize kernel against its plain version on the card,
     on the inputs recorded from the main path and on synthetic edge cases;
     times at the main path's first call's shapes."""
@@ -1003,6 +1017,14 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
         if e != 0.0:
             raise AssertionError(f"overlay_fit disagrees on {label}: {e}")
         cases["overlay_fit"] += 1
+    # dense_match: the main path's calls (the long-token tails of both
+    # vocabs, on top of the stab join's result)
+    for args, kw in calls["dense_match"]:
+        got = dense_kernels.dense_match(*args, **kw)
+        torch.cuda.synchronize()
+        err["dense_match"] = max(err["dense_match"],
+                                 max_abs_diff(got, dense_kernels.dense_match_plain(*args, **kw)))
+        cases["dense_match"] += 1
     for k, e in err.items():
         if e != 0.0 or cases[k] == 0:
             raise AssertionError(f"{k} disagrees with its plain version: max_abs_err {e}, cases {cases[k]}")
@@ -1019,7 +1041,8 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
     ex_set = int(ex_mask.sum())
     ex_zeros = torch.zeros(ex_mask.shape[0], dtype=torch.int32, device=dev)
     (ov_skp, ov_len), ov_kw = calls["overlay_fit"][0]
-    n_cv, n_cm, n_ex = cv_vals.numel(), cm_vals.numel(), ex_mask.numel()
+    dm_args, dm_kw = calls["dense_match"][0]
+    n_cv, n_cm, n_ex, n_dm = cv_vals.numel(), cm_vals.numel(), ex_mask.numel(), dm_args[0].numel()
     timing = {
         "compact_valid": (lambda: kernels.compact_valid(cv_vals),
                           lambda: kernels.compact_mask_plain(cv_vals),
@@ -1041,11 +1064,18 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, calls, dev) -> dict:
                         None,
                         16 * ov_skp.numel(),
                         {"shape": list(ov_skp.shape), **ov_kw}),
+        "dense_match": (lambda: dense_kernels.dense_match(*dm_args, **dm_kw),
+                        lambda: dense_kernels.dense_match_plain(*dm_args, **dm_kw),
+                        None,
+                        33 * n_dm,
+                        {"n": n_dm, "lengths": dm_args[1].lengths, "slots": dm_args[1].slots.shape[0],
+                         "incoming": True}),
     }
     # inputs that fit in the L2 can stay there between the back-to-back
     # timed calls; the level-1 stream (77 MB) cannot
     input_bytes = {"compact_valid": 4 * n_cv, "compact_mask": 4 * n_cm * (1 + len(cm_extras)),
-                   "expand_to_mask": n_ex + 4 * ex_vals.numel(), "overlay_fit": 4 * ov_skp.numel()}
+                   "expand_to_mask": n_ex + 4 * ex_vals.numel(), "overlay_fit": 4 * ov_skp.numel(),
+                   "dense_match": 17 * n_dm}
     rows = {}
     for k, (kern, plain, library, nbytes, shape) in timing.items():
         if library:  # the kernel and the library call in turns
@@ -2130,6 +2160,97 @@ def bench_phase(torch, api_out: dict, launches: dict, smi: str) -> None:
         launches[k] = launches.get(k, 0) + v
 
 
+def dense_match_cases(torch, tok1k, buf, dev) -> list:
+    """Phase 27's inputs: (label, data, dense tables, input_len, chunk,
+    incoming) at the trained 1K vocab, a vocab of 64-200-byte tokens, a
+    table at its least size (colliding probes) and one too large for shared
+    memory."""
+    from gpu_bpe_tpu_torch import Tokenizer
+    from gpu_bpe_tpu_torch.ops import dense_kernels as dk
+
+    t = tok1k.tables
+    n, cs, dense = buf.numel(), tok1k.chunk_size, tok1k._dense
+    n_keys = sum(len(t.ids[ln]) for ln in t.dense_lengths)
+    forced = dk.DenseTables(t, dk.DenseHash.build(t, n_slots=1 << n_keys.bit_length()), dev)
+    in_l2 = dk.DenseTables(t, dk.DenseHash.build(t, n_slots=1 << 14), dev)  # 256 KB of slots
+    rng = np.random.default_rng(2718)
+    vocab = [bytes([b]) for b in range(256)]
+    while len(vocab) < 596:
+        w = bytes(rng.integers(97, 101, size=int(rng.integers(2, 11))).tolist())
+        vocab += [w] if w not in vocab else []
+    vocab += [bytes(rng.integers(97, 99, size=int(rng.integers(64, 201))).tolist()) for _ in range(40)]
+    gather = Tokenizer(vocab, device=dev)
+    text = b"".join(vocab[int(i)] for i in rng.integers(256, len(vocab), size=80_000))[: (1 << 20) + 13]
+    gbuf = torch.from_numpy(np.frombuffer(text, np.uint8).copy()).to(dev)
+    m = 1 << 20
+    incoming = (torch.randint(-1, len(tok1k.vocab), (m,), device=dev), torch.randint(0, 9, (m,), device=dev))
+    return [
+        ("1k_16mib", buf, dense, n, cs, ()),
+        ("1k_input_ends_inside_a_chunk", buf, dense, n - 12345, cs, ()),
+        ("1k_chunk_500_view_3_bytes_in", buf[3:], dense, n - 3 - 777, 500, ()),
+        ("1k_incoming_match", buf[:m], dense, m - 5, cs, incoming),
+        ("1k_forced_collisions", buf[: 1 << 22], forced, (1 << 22) - 1, cs, ()),
+        ("1k_table_in_l2", buf[: 1 << 22], in_l2, 1 << 22, cs, ()),
+        ("1k_tile_edges_chunk_512", buf[: 2 * dk.TILE + 1], dense, 2 * dk.TILE + 1, 512, ()),
+        ("1k_one_partial_tile", buf[:77], dense, 70, cs, ()),
+        ("gather_64_200", gbuf, gather._dense, gbuf.numel() - 1, gather.chunk_size, ()),
+    ]
+
+
+def dense_match_phase(torch, corpus: bytes, vocab1k, rows: dict) -> None:
+    """Phase 27: dense_match.cu against its plain version on the card at
+    the trained 1K vocab's 16 MiB pass and on the edge cases of
+    ``dense_match_cases``; its time at the 1K pass's shape beside its byte
+    bound and the plain version's, and the whole match table's and pass's
+    times there."""
+    from gpu_bpe_tpu_torch import Tokenizer
+    from gpu_bpe_tpu_torch.ops import dense_kernels as dk
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops import tokenize as ttz
+
+    dev = torch.device("cuda")
+    tok = Tokenizer(vocab1k)
+    t = tok.tables
+    if t.stab is not None or len(t.dense_lengths) < 2:
+        raise AssertionError(f"the 1K vocab has a stab table or few dense lengths: {t.dense_lengths}")
+    buf = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).to(dev)
+    err, hits = 0.0, {}
+    before = kernels.LAUNCHES["dense_match"]
+    for label, data, dense, input_len, cs, incoming in dense_match_cases(torch, tok, buf, dev):
+        got = dk.dense_match(data, dense, input_len, cs, *incoming)
+        torch.cuda.synchronize()
+        want = dk.dense_match_plain(data, dense, input_len, cs, *incoming)
+        e = max_abs_diff(got, want)
+        if e != 0.0:
+            raise AssertionError(f"dense_match disagrees with its plain version on {label}: {e}")
+        hits[label] = int((want[1] > 1).sum())
+        err = max(err, e)
+    if kernels.LAUNCHES["dense_match"] - before != len(hits) or min(hits.values()) <= 0:
+        raise AssertionError(f"dense_match: launches {kernels.LAUNCHES['dense_match'] - before}, hits {hits}")
+
+    n, cs, dense = buf.numel(), tok.chunk_size, tok._dense
+    kern = lambda: dk.dense_match(buf, dense, n, cs)  # noqa: E731
+    plain = lambda: dk.dense_match_plain(buf, dense, n, cs)  # noqa: E731
+    table = lambda: ttz.build_match_table(buf, t, None, dense, n, cs)  # noqa: E731
+    ms, table_ms = time_in_turns(torch, [kern, table], 20)
+    plain_ms = time_ms(torch, plain, 3)
+    prof = dict(host_ms=host_ms(torch, kern, 50), **device_profile(torch, kern))
+    nbytes = 17 * n  # the pass's bytes read, match_id and match_len written
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    slots = dense.slots.shape[0]
+    rows["dense_match"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None,
+                               max_abs_err=max(err, rows.get("dense_match", {}).get("max_abs_err", 0.0)), **prof)
+    emit({"phase": "dense_match", "cases": len(hits), "hits": hits, "max_abs_err": err, "tolerance": 0,
+          "ms": ms, "plain_ms": plain_ms, "match_table_ms": table_ms, **prof, "bytes": nbytes,
+          "bound_ms": bound_ms, "bound_by": "bytes", "bound_fraction": bound_ms / ms,
+          "shape": {"n": n, "chunk": cs, "lengths": t.dense_lengths, "keys": int((dense.slots[:, 0] != 0).sum()),
+                    "slots": slots, "max_probes": dense.max_probes,
+                    "table_bytes": 16 * slots + 4 * dense.words.numel()},
+          "pass": pass_rates(torch, tok, corpus)})
+    if round(prof["device_ops"]) > 1:
+        raise AssertionError(f"dense_match put {prof['device_op_names']} on the card per call, want one kernel")
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -2154,7 +2275,7 @@ def main() -> int:
         return 2
     from gpu_bpe_tpu_torch import Tokenizer, Trainer
     from gpu_bpe_tpu_torch.core import GreedyTrieEncoder
-    from gpu_bpe_tpu_torch.ops import build, kernels, stab_kernels
+    from gpu_bpe_tpu_torch.ops import build, dense_kernels, kernels, stab_kernels
     from gpu_bpe_tpu_torch.ops import tokenize as ttz
     from gpu_bpe_tpu_torch.ops import train_step as ts
     from gpu_bpe_tpu_torch.ops.ingest import make_stream, pad_stream
@@ -2173,7 +2294,8 @@ def main() -> int:
     if tile != kernels.COMPACT_TILE:
         raise AssertionError(f"compact_mask.cu tiles {tile} entries, ops/kernels.py says {kernels.COMPACT_TILE}")
     for lib, fn, want in (("expand_to_mask", "em_tile_entries", kernels.EXPAND_TILE),
-                          ("overlay_fit", "of_tile_rows", stab_kernels.OVERLAY_TILE)):
+                          ("overlay_fit", "of_tile_rows", stab_kernels.OVERLAY_TILE),
+                          ("dense_match", "dm_tile_positions", dense_kernels.TILE)):
         got = getattr(build.load()[lib], fn)()
         if got != want:
             raise AssertionError(f"{lib}.cu tiles {got} entries, the wrapper's module says {want}")
@@ -2291,7 +2413,7 @@ def main() -> int:
         raise AssertionError(f"tokenize checks failed: {checks}")
 
     # ── phase 10: tokenize kernels against their plain versions ──
-    rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, calls, torch.device("cuda")))
+    rows.update(tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, torch.device("cuda")))
     del calls
 
     api_out = api_phases(torch, corpus, vocabs, launches, rows)
@@ -2312,6 +2434,7 @@ def main() -> int:
     soak_phase(torch, smi, launches)
     bitonic_phase(torch, smi, launches, rows)
     bench_phase(torch, api_out, launches, smi)
+    dense_match_phase(torch, corpus, api_out["nodedup"].vocab[:1024], rows)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

@@ -11,8 +11,8 @@ is rebuilt and an unchanged one is loaded as it is. They are bound with
 ``ctypes``: every pointer and the stream pass as ``c_void_p``, sizes as
 ``c_longlong``, host blocks of packed device addresses as ``bytes``, and
 each entry point returns its ``cudaGetLastError()``, which the wrappers in
-``ops/kernels.py``, ``ops/stab_kernels.py`` and ``ops/bitonic.py`` raise
-on. A failed build raises.
+``ops/kernels.py``, ``ops/stab_kernels.py``, ``ops/dense_kernels.py`` and
+``ops/bitonic.py`` raise on. A failed build raises.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "merge_compact_tracked", "count_pairs2", "window_post",
-    "compact_mask", "expand_to_mask", "overlay_fit", "bitonic_rounds",
+    "compact_mask", "expand_to_mask", "overlay_fit", "bitonic_rounds", "dense_match",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,11 +67,15 @@ _SIGNATURES = {
         "of_tile_rows": [],
     },
     "bitonic_rounds": {"bitonic_rounds": [_P] * 6 + [_I, _I, _P]},
+    "dense_match": {
+        "dense_match": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I] + [_P] * 6,
+        "dm_tile_positions": [],
+    },
 }
 _RESTYPES = {name: ctypes.c_longlong
              for name in ("mc_scratch_words", "mc_arena_words", "cp_scratch_words", "cm_scratch_words",
                           "cm_tile_entries", "em_scratch_words", "em_tile_entries", "of_scratch_words",
-                          "of_tile_rows")}
+                          "of_tile_rows", "dm_tile_positions")}
 
 
 def _nvcc() -> str:

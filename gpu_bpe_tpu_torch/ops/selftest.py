@@ -1,7 +1,7 @@
 """Kernel selftest: every kernel of the port on one device, held to numpy
 references and to its plain PyTorch version (the port's counterpart of
 ``gpu_bpe_tpu/ops/selftest.py``, with the same cases, names, seeds and
-sizes, and one more: ``overlay_fit``).
+sizes, and two more: ``overlay_fit`` and ``dense_match``).
 
 ``run_kernel_selftest()`` runs on the card by default: it is how a user
 checks the CUDA kernels on their own card. ``device="cpu"`` runs the same
@@ -23,7 +23,7 @@ BLOCK = 32768  # stream length of the cases' block-boundary layouts
 CASES = (
     "random_stream", "overlap_quirk", "block_boundary_sites", "poisoned_tail", "tracked_hist_multiblock",
     "count_pairs2", "window_probe_prep", "probe_count_heavy", "window_post", "compact_valid",
-    "compact_expand_roundtrip", "overlay_fit",
+    "compact_expand_roundtrip", "overlay_fit", "dense_match",
 )
 
 
@@ -319,5 +319,35 @@ def run_kernel_selftest(device: str | torch.device = "cuda") -> dict[str, bool]:
     got = overlay_fit(i32(kp), 20_000, **kw)
     want = overlay_fit_plain(i32(kp).cpu(), 20_000, **kw)
     results["overlay_fit"] = _equal(got, want)
+
+    # 9. dense_match (no Pallas selftest case): 300 keys of 2..20 bytes over
+    #    four letters, and keys of NUL and 0xFF bytes, on a pass of three
+    #    tiles and 300 bytes whose input ends inside a 512-byte chunk; the
+    #    single-byte step in the kernel, an incoming match, and a table at
+    #    its least size (colliding probes), against the plain version
+    from .dense_kernels import TILE, DenseHash, DenseTables, dense_match, dense_match_plain
+    from .tokenize import MatchTables
+
+    r4 = np.random.default_rng(17)
+    keys = {bytes(r4.integers(97, 101, size=int(r4.integers(2, 21))).tolist()) for _ in range(300)}
+    keys |= {b"\x00\x00", b"ab\x00", b"ab\x00\x00\x00\x00", b"\xff" * 5, b"\x00\xff" * 4}
+    tables = MatchTables.from_vocab([bytes([b]) for b in range(256)] + sorted(keys))
+    words = sorted(keys)
+    text = b"".join(words[int(i)] if i < len(words) else b"\x00\xff"[: int(i) % 3]
+                    for i in r4.integers(0, len(words) + 60, size=3000))
+    n = 3 * TILE + 300
+    data = np.frombuffer((text * 2)[:n], dtype=np.uint8).copy()
+    in_id = r4.integers(-1, 2000, size=n)
+    in_len = r4.integers(0, 9, size=n)
+    ok = True
+    for n_slots in (None, 1 << len(keys).bit_length()):
+        hashed = DenseHash.build(tables, n_slots=n_slots)
+        on_dev, on_cpu = DenseTables(tables, hashed, dev), DenseTables(tables, hashed, "cpu")
+        for incoming in ((), (in_id, in_len)):
+            args = [torch.from_numpy(data), n - 700, 512, *[torch.from_numpy(a) for a in incoming]]
+            got = dense_match(args[0].to(dev), on_dev, *args[1:3], *[a.to(dev) for a in args[3:]])
+            want = dense_match_plain(args[0], on_cpu, *args[1:])
+            ok &= _equal(got, want) and bool((want[1] > 1).any())
+    results["dense_match"] = bool(ok)
 
     return {k: results[k] for k in CASES}

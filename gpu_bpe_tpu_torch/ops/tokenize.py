@@ -10,7 +10,9 @@ greedy reference ``core.encoder_ref.GreedyTrieEncoder``:
    bytes map directly; token lengths 2..32 of a large vocab go through the
    chained sorted interval-stabbing join (``_stab_match``: one stable sort
    per level, the ``overlay_fit`` kernel, a scatter back to row order);
-   the other lengths through a dense equality join in position chunks.
+   the other lengths through the dense join (``dense_match``: one hash
+   probe per position and length on the card, an equality join in
+   position chunks on the CPU).
    On the card, levels >= 2 of the chain run in rank space: the positions
    that carry a prefix-group id are compacted (``compact_mask``), joined
    there, and expanded back (``expand_to_mask``).
@@ -37,6 +39,7 @@ import torch
 from ..constants import INVALID_TOKEN, adaptive_chunk_size
 from ..core.encoder_ref import decode_tokens
 from ..utils.timing import span
+from .dense_kernels import DenseHash, DenseTables, _pack_bytes, dense_match
 from .kernels import _to_i32, compact_mask, compact_valid, expand_to_mask
 from .stab_kernels import NO_GROUP, overlay_fit
 from .trainer import resolve_device
@@ -61,7 +64,6 @@ _RANK_MIN_N = 1 << 20  # rank-space level chain: passes of at least this many by
 _RANK_CAP_FLOOR = 1 << 15  # smallest rank-space capacity
 _SEG_MIN_ROWS = 1 << 16  # smallest join worth segmenting
 _POS_NONE = 0x1FFFFFF  # position payload past any real position
-_JOIN_TILE = 1 << 26  # dense join: positions x vocab entries compared per chunk
 _MAX_WALK_STEP = 63  # longest jump of the 64-bit emission schedule
 
 
@@ -393,16 +395,6 @@ def _stab_join(w0, w1, pos_pay, rows: _JoinRows, input_len: int, chunk_size: int
     return restore(packed), (restore(gid) if group_depth >= 0 else None)
 
 
-def _pack_bytes(data: torch.Tensor, base: int, count: int) -> torch.Tensor:
-    """Big-endian word of the ``count`` bytes at p + base .. p + base +
-    count - 1 for every position p, wrapping around the end as
-    ``jnp.roll`` does (int64)."""
-    w = torch.zeros(data.shape[0], dtype=torch.int64, device=data.device)
-    for j in range(count):
-        w = (w << 8) | torch.roll(data, -(base + j)).to(torch.int64)
-    return w
-
-
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bits -> int64 u32 value."""
     return x.to(torch.int64) & 0xFFFFFFFF
@@ -507,29 +499,21 @@ def _stab_match(data: torch.Tensor, stab_rows: _StabTables, input_len: int, chun
     return torch.maximum(result, _u32(expand_to_mask(mask, _i32(contrib_r))))
 
 
-class _DenseTables:
-    """The dense join's per-length vocab keys and ids on one device."""
-
-    def __init__(self, tables: MatchTables, device):
-        self.keys = {ln: torch.from_numpy(tables.keys[ln].astype(np.int64)).to(device)
-                     for ln in tables.dense_lengths}
-        self.ids = {ln: torch.from_numpy(tables.ids[ln].astype(np.int64)).to(device)
-                    for ln in tables.dense_lengths}
-
-
 def build_match_table(data: torch.Tensor, tables: MatchTables, stab_rows: _StabTables | None,
-                      dense: _DenseTables, input_len: int, chunk_size: int,
+                      dense: DenseTables, input_len: int, chunk_size: int,
                       rank_mode: str | None = None):
     """Longest in-chunk match per position (``tokenize.py:803``): (match_id,
     match_len), int64 ``[N]``. ``match_id`` is -1 where nothing, not even a
     single-byte token, matches; the walk then emits the raw byte.
     ``stab_rows``/``dense`` are ``tables`` on ``data``'s device
     (``stab_rows`` None without a stab table)."""
+    if tables.stab is None and tables.dense_lengths:
+        # the dense join takes the single-byte matches itself
+        return dense_match(data, dense, input_len, chunk_size)
     dev = data.device
     n = data.shape[0]
     d64 = data.to(torch.int64)
     iota = torch.arange(n, dtype=torch.int64, device=dev)
-    chunk_end = torch.clamp((iota // chunk_size + 1) * chunk_size, max=input_len)
 
     # length-1 matches
     if tables.byte_ids_identity:
@@ -548,36 +532,7 @@ def build_match_table(data: torch.Tensor, tables: MatchTables, stab_rows: _StabT
 
     if not tables.dense_lengths:
         return match_id, match_len
-
-    # per-length exact joins over packed substring words, in position
-    # chunks of about _JOIN_TILE compared pairs (ascending length: longer
-    # matches overwrite)
-    max_words = (max(tables.dense_lengths) + 3) // 4
-    sub = torch.stack([_pack_bytes(data, 4 * w, 4) for w in range(max_words)], dim=1)
-    widest = max(dense.keys[ln].shape[0] for ln in tables.dense_lengths)
-    step = max(1, _JOIN_TILE // widest)
-    ids_out, lens_out = [], []
-    for a in range(0, n, step):
-        sub_c, id_c, len_c = sub[a : a + step], match_id[a : a + step], match_len[a : a + step]
-        room = chunk_end[a : a + step] - iota[a : a + step]
-        for ln in tables.dense_lengths:
-            keys = dense.keys[ln]
-            n_words = (ln + 3) // 4
-            rem = ln - (n_words - 1) * 4
-            eq = None
-            for w in range(n_words):
-                sw = sub_c[:, w]
-                if w == n_words - 1 and rem < 4:
-                    sw = sw & ((0xFFFFFFFF << ((4 - rem) * 8)) & 0xFFFFFFFF)
-                e = sw[:, None] == keys[None, :, w]
-                eq = e if eq is None else eq & e
-            hit_id = torch.where(eq, dense.ids[ln][None, :], -1).amax(1)
-            hit = (hit_id >= 0) & (ln <= room)  # must end within the chunk AND input
-            id_c = torch.where(hit, hit_id, id_c)
-            len_c = torch.where(hit, ln, len_c)
-        ids_out.append(id_c)
-        lens_out.append(len_c)
-    return torch.cat(ids_out), torch.cat(lens_out)
+    return dense_match(data, dense, input_len, chunk_size, match_id, match_len)
 
 
 def chunk_walk(match_id, match_len, data, input_len: int, chunk_size: int) -> torch.Tensor:
@@ -714,11 +669,12 @@ class Tokenizer:
             max_pass_bytes = min(max_pass_bytes, 1 << 24)
         slice_bytes = max(max_pass_bytes, self.chunk_size)
         self.max_pass_bytes = (slice_bytes // self.chunk_size) * self.chunk_size
+        hashed = DenseHash.build(self.tables)
         self._on_device = {}  # device -> (stab rows, dense tables) there
         for dev in [self.device, *self.devices]:
             if dev not in self._on_device:
                 stab = _StabTables(self.tables.stab, dev) if self.tables.stab else None
-                self._on_device[dev] = (stab, _DenseTables(self.tables, dev))
+                self._on_device[dev] = (stab, DenseTables(self.tables, hashed, dev))
         self._stab_rows, self._dense = self._on_device[self.device]
 
     @classmethod
@@ -740,7 +696,7 @@ class Tokenizer:
         ids, ``total`` a 0-d int64 tensor."""
         stab_rows, dense = self._on_device[buf.device]
         with span("tokenize.match_table") as sp:
-            sp.note(stab=int(stab_rows is not None))
+            sp.note(stab=int(stab_rows is not None), dense=len(self.tables.dense_lengths))
             mid, mlen = build_match_table(buf, self.tables, stab_rows, dense, input_len,
                                           self.chunk_size, self.rank_mode)
         walk = chunk_walk if self.tables.max_token_len <= _MAX_WALK_STEP else chunk_walk_gather

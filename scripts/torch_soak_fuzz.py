@@ -68,7 +68,7 @@ SHAPES = ("dense", "chained", "wide")  # the JAX soak's vocab shapes, by rng.int
 N_SHORT = 2600  # the port's own shapes: the vocab before its long tokens
 LOOPS = ("default", "multi_merge", "force_recount", "dist")  # trainer trial s takes LOOPS[s % 4]
 KERNELS = ("merge_compact_tracked", kernels.PROBE_LESS, "count_pairs2", "window_post",
-           "compact_valid", "compact_mask", "expand_to_mask", "overlay_fit")
+           "compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match")
 
 
 def random_vocab(rng, n_total, long_spec, min_long=9):

@@ -226,7 +226,8 @@ def test_encode_bytes_gives_its_spans(case, monkeypatch):
     passes = [i for i, s in enumerate(sp) if s.name == "tokenize.pass"]
     assert len(passes) == 1 and sp[passes[0]].attrs == {"bytes": len(data)}
     table = next(s for s in sp if s.name == "tokenize.match_table")
-    assert table.parent == passes[0] and table.attrs == {"stab": int(case == "rank")}
+    assert table.parent == passes[0]
+    assert table.attrs == {"stab": int(case == "rank"), "dense": len(tok.tables.dense_lengths)}
     assert next(s for s in sp if s.name == "tokenize.walk").parent == passes[0]
     sites = [s.attrs["site"] for s in sp if s.name == "tokenize.read"]
     assert sites[-1] == "ids" and sites.count("ids") == 1
