@@ -1339,31 +1339,6 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -
     return {"train": res11, "tokenizer": tok11, "nodedup": res12, "ids": ids13, "stream_n": u_stream.n}
 
 
-@contextmanager
-def counted_collectives():
-    """Count the torch.distributed collectives called while the block runs,
-    by name."""
-    import torch.distributed as dist
-
-    names = ("all_reduce", "all_gather", "all_gather_into_tensor")
-    counts = Counter()
-    originals = {name: getattr(dist, name) for name in names}
-
-    def counting(name, fn):
-        def call(*args, **kw):
-            counts[name] += 1
-            return fn(*args, **kw)
-        return call
-
-    for name, fn in originals.items():
-        setattr(dist, name, counting(name, fn))
-    try:
-        yield counts
-    finally:
-        for name, fn in originals.items():
-            setattr(dist, name, fn)
-
-
 def dist_phases(torch, corpus: bytes, stream, main_merges, launches: dict) -> None:
     """Phases 14-15: the data-parallel trainer on the card. Adds the probe-less
     merge's launches of both runs (every rank's) to ``launches``."""
@@ -1372,15 +1347,17 @@ def dist_phases(torch, corpus: bytes, stream, main_merges, launches: dict) -> No
     from gpu_bpe_tpu_torch import api
     from gpu_bpe_tpu_torch.ops import kernels
     from gpu_bpe_tpu_torch.parallel import dist_train
+    from gpu_bpe_tpu_torch.parallel.mesh import COLLECTIVES
 
     # ── phase 14: api.train(backend="dist"), one rank, NCCL ──
     kernels.LAUNCHES.clear()
     dist_train.HOST_READS.clear()
+    COLLECTIVES.clear()
     events = []
-    with counted_collectives() as coll:
-        _, res = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, backend="dist", show_progress=False),
-                           on_progress=events.append)
-        torch.cuda.synchronize()
+    _, res = api.train(corpus, api.TrainConfig(vocab_size=256 + API_MERGES, backend="dist", show_progress=False),
+                       on_progress=events.append)
+    torch.cuda.synchronize()
+    coll = {k: v for k, v in COLLECTIVES.items() if k != "bytes"}
     run_launches = {k: kernels.LAUNCHES[k] for k in (PROBE_LESS, *TRAIN_KERNELS)}
     record = json.loads((REPO / CERT16).read_text())["normal"]
     got = sha_pair(res)
@@ -1388,7 +1365,8 @@ def dist_phases(torch, corpus: bytes, stream, main_merges, launches: dict) -> No
     reads = dict(dist_train.HOST_READS)
     emit({"phase": "dist_train", "ranks": 1, "backend": "nccl", "bytes": len(corpus), "merges": n_merges,
           "seconds": res.training_time_s, "merges_per_s": n_merges / res.training_time_s,
-          "recounts": res.recounts, "duals": res.duals, "collectives": dict(coll),
+          "recounts": res.recounts, "duals": res.duals, "collectives": coll,
+          "collective_bytes": COLLECTIVES["bytes"],
           "collectives_per_merge": sum(coll.values()) / n_merges, "host_reads": reads,
           "host_reads_per_merge": sum(reads.values()) / n_merges, "launches": run_launches, **got,
           "record": CERT16, "equal_to_record": got == {k: record[k] for k in got}})
@@ -1444,6 +1422,7 @@ def dist_worker(addr: str, rank: int, tmp: str) -> int:
     from gpu_bpe_tpu_torch.ops import kernels
     from gpu_bpe_tpu_torch.ops.ingest import SymbolStream
     from gpu_bpe_tpu_torch.parallel import DataGroup, DistributedTrainer
+    from gpu_bpe_tpu_torch.parallel.mesh import COLLECTIVES
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=DIST_RANKS, rank=rank,
@@ -1454,15 +1433,16 @@ def dist_worker(addr: str, rank: int, tmp: str) -> int:
         stream = SymbolStream(symbols=z["symbols"], weights=z["weights"], n=len(z["symbols"]),
                               total_bytes=int(z["total"]))
         kernels.LAUNCHES.clear()
-        with counted_collectives() as coll:
-            res = DistributedTrainer(group).train_stream(stream, target_vocab_size=256 + MERGES)
-            torch.cuda.synchronize()
+        COLLECTIVES.clear()
+        res = DistributedTrainer(group).train_stream(stream, target_vocab_size=256 + MERGES)
+        torch.cuda.synchronize()
         from gpu_bpe_tpu_torch.parallel import shard_stream
 
         sym, _, n = shard_stream(stream.symbols, stream.weights, DIST_RANKS)
         out = {"merges": res.merges, "counts": res.merge_counts, "seconds": res.training_time_s,
                "recounts": res.recounts, "duals": res.duals, "transport": "gloo-cuda", "shard_n": n.tolist(),
-               "capacity": int(sym.shape[1]), "collectives": sum(coll.values()),
+               "capacity": int(sym.shape[1]),
+               "collectives": sum(v for k, v in COLLECTIVES.items() if k != "bytes"),
                "launches": kernels.LAUNCHES[PROBE_LESS]}
         Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(out))
     finally:

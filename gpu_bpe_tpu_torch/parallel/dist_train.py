@@ -43,6 +43,12 @@ or were replicated from the start, read in one packed host read per merge
 histograms are summed as int64 (their f32 values are integers), so the sum
 has the same bits on every rank. The merge list is independent of the
 world size; ``recounts`` and ``duals`` are not (the ceilings move with it).
+
+Spans, under the single-chip trainer's names: ``train.recount`` around a
+full recount (``tier``: ``dist_sparse``, or ``dist_dense`` where the whole
+shards were gathered), and ``train.read`` (``site``: the ``HOST_READS``
+key) around each host read; each collective is a ``train.collective``
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from ..ops.train_step import (
     _run_totals,
     _ub_from_bins,
 )
+from ..utils.timing import span
 from .mesh import DataGroup
 
 N_SLOTS = K_CANDIDATES + S_CREATED
@@ -190,49 +197,55 @@ def _full_recount(g: DataGroup, st: DistState):
     ``(state, best_pair, count, host)`` with ``host`` = [count, n_aff of
     the best pair, theta] read on the host; the sparse path needs one host
     read, the dense one two."""
-    pair, w = _stream_pairs(st.symbols, st.weights, st.n)
-    sp, order = torch.sort(pair)
-    rt = _run_totals(sp, w[order])
-    # any local top-(K+1) is sound: the bound below is an exact masked max
-    vals, idx = torch.topk(rt, K_CANDIDATES + 1)
-    loc = torch.where(vals > 0, sp[idx], INVALID)
-    su = torch.sort(g.all_gather(loc)).values  # [D * (K+1)]
-    dup = torch.zeros_like(su, dtype=torch.bool)
-    dup[1:] = su[1:] == su[:-1]
-    su = torch.where(dup, INVALID, su)
-    # exact global counts of the union, and the sum over ranks of each
-    # rank's largest count outside its own selection, in one psum (the
-    # reference sums both in int32)
-    outside = torch.where(torch.isin(sp, loc), 0, rt).max()
-    tot = _to_i32(g.psum(torch.cat([_local_counts(su, pair, w), outside.reshape(1)])))
-    uc = torch.where(su == INVALID, 0, tot[:-1])
-    bound1 = tot[-1]
-    o = torch.argsort(su, stable=True)
-    o = o[torch.argsort(-uc[o], stable=True)]  # (count desc, pair asc)
-    sorted_pairs, sorted_counts = su[o], uc[o]
-    # the union's result is exact only if its winner strictly beats the
-    # bound (a tie could hide a smaller pair id outside every selection)
-    cand = torch.cat([sorted_pairs[:K_CANDIDATES], sorted_pairs.new_full((S_CREATED,), INVALID)])
-    counts = torch.cat([torch.where(sorted_pairs[:K_CANDIDATES] == INVALID, -1, sorted_counts[:K_CANDIDATES]),
-                        sorted_counts.new_full((S_CREATED,), -1)])
-    theta = torch.maximum(bound1, sorted_counts[K_CANDIDATES])
-    best, count = sorted_pairs[0], sorted_counts[0]
-    head = torch.stack([(count > bound1).to(torch.int64), count, _affected(cand, counts, best).sum(), theta]).tolist()
-    HOST_READS["recount"] += 1
-    provable, host = head[0], head[1:]
-    if not provable:
-        # dense: all-gather the masked pair streams (shards start at word
-        # starts, so no pair crosses two) and recount them globally; the
-        # theta this gives is tight
-        gp, gw = g.all_gather(pair), g.all_gather(w)
-        sp2, order2 = torch.sort(gp)
-        best, count, cand, counts, theta = _pick_window(sp2, _run_totals(sp2, gw[order2]))
-        host = torch.stack([count, _affected(cand, counts, best).sum(), theta]).tolist()
+    with span("train.recount") as rec:
+        pair, w = _stream_pairs(st.symbols, st.weights, st.n)
+        sp, order = torch.sort(pair)
+        rt = _run_totals(sp, w[order])
+        # any local top-(K+1) is sound: the bound below is an exact masked max
+        vals, idx = torch.topk(rt, K_CANDIDATES + 1)
+        loc = torch.where(vals > 0, sp[idx], INVALID)
+        su = torch.sort(g.all_gather(loc)).values  # [D * (K+1)]
+        dup = torch.zeros_like(su, dtype=torch.bool)
+        dup[1:] = su[1:] == su[:-1]
+        su = torch.where(dup, INVALID, su)
+        # exact global counts of the union, and the sum over ranks of each
+        # rank's largest count outside its own selection, in one psum (the
+        # reference sums both in int32)
+        outside = torch.where(torch.isin(sp, loc), 0, rt).max()
+        tot = _to_i32(g.psum(torch.cat([_local_counts(su, pair, w), outside.reshape(1)])))
+        uc = torch.where(su == INVALID, 0, tot[:-1])
+        bound1 = tot[-1]
+        o = torch.argsort(su, stable=True)
+        o = o[torch.argsort(-uc[o], stable=True)]  # (count desc, pair asc)
+        sorted_pairs, sorted_counts = su[o], uc[o]
+        # the union's result is exact only if its winner strictly beats the
+        # bound (a tie could hide a smaller pair id outside every selection)
+        cand = torch.cat([sorted_pairs[:K_CANDIDATES], sorted_pairs.new_full((S_CREATED,), INVALID)])
+        counts = torch.cat([torch.where(sorted_pairs[:K_CANDIDATES] == INVALID, -1, sorted_counts[:K_CANDIDATES]),
+                            sorted_counts.new_full((S_CREATED,), -1)])
+        theta = torch.maximum(bound1, sorted_counts[K_CANDIDATES])
+        best, count = sorted_pairs[0], sorted_counts[0]
+        head = torch.stack([(count > bound1).to(torch.int64), count, _affected(cand, counts, best).sum(), theta])
+        with span("train.read", "recount"):
+            head = head.tolist()
         HOST_READS["recount"] += 1
-    dev = st.n.device
-    st = replace(st, cand=cand, cand_counts=counts, theta=theta, ub_new=_i64(0, dev),
-                 fill=_i64(K_CANDIDATES, dev), recounts=st.recounts + 1)
-    return st, best, count, host
+        provable, host = head[0], head[1:]
+        rec.note(tier="dist_sparse" if provable else "dist_dense")
+        if not provable:
+            # dense: all-gather the masked pair streams (shards start at word
+            # starts, so no pair crosses two) and recount them globally; the
+            # theta this gives is tight
+            gp, gw = g.all_gather(pair), g.all_gather(w)
+            sp2, order2 = torch.sort(gp)
+            best, count, cand, counts, theta = _pick_window(sp2, _run_totals(sp2, gw[order2]))
+            host = torch.stack([count, _affected(cand, counts, best).sum(), theta])
+            with span("train.read", "recount"):
+                host = host.tolist()
+            HOST_READS["recount"] += 1
+        dev = st.n.device
+        st = replace(st, cand=cand, cand_counts=counts, theta=theta, ub_new=_i64(0, dev),
+                     fill=_i64(K_CANDIDATES, dev), recounts=st.recounts + 1)
+        return st, best, count, host
 
 
 def _merge_and_track(g: DataGroup, st: DistState, pair, count, n_aff: int, md: int, follow=None):
@@ -299,7 +312,9 @@ def _merge_and_track(g: DataGroup, st: DistState, pair, count, n_aff: int, md: i
                  cand=cand2, cand_counts=counts3, ub_new=ub_new, fill=torch.where(has_room, st.fill + 2, st.fill))
     dec = _decision(cand2, counts3)
     n_follow = _affected(cand2, counts3, follow).sum() if follow is not None else torch.zeros_like(nid)
-    host = torch.cat([torch.stack([ub_merge, c_lr[0], c_lr[1], n_follow, st.theta, ub_new]), dec]).tolist()
+    host = torch.cat([torch.stack([ub_merge, c_lr[0], c_lr[1], n_follow, st.theta, ub_new]), dec])
+    with span("train.read", "merge"):
+        host = host.tolist()
     HOST_READS["merge"] += 1
     return st, dec, host
 
@@ -311,7 +326,9 @@ def dist_train_batch(group: DataGroup, st: DistState, batch_merges: int) -> Dist
     takes the same branches. The merge log is updated in place."""
     st = replace(st, merges_done=torch.zeros_like(st.merges_done))
     dec = _decision(st.cand, st.cand_counts)
-    head = torch.cat([torch.stack([st.next_id, st.early_stop, st.theta, st.ub_new]), dec]).tolist()
+    head = torch.cat([torch.stack([st.next_id, st.early_stop, st.theta, st.ub_new]), dec])
+    with span("train.read", "batch"):
+        head = head.tolist()
     HOST_READS["batch"] += 1
     nid, stop, theta, ub = head[0], bool(head[1]), head[2], head[3]
     h = head[4:]

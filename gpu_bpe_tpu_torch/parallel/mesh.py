@@ -9,12 +9,30 @@ that the two trainers map line by line: ``psum``, ``pmax`` and ``pmin`` are
 rank's tensor in rank order (``all_gather_into_tensor``, or the list form
 under gloo). They always go through ``torch.distributed``, at world size 1
 too.
+
+Each collective is a ``train.collective`` span (``op``, and ``bytes``: the
+bytes this rank hands it) and is counted in ``COLLECTIVES``: calls by op,
+and their bytes summed under the key ``bytes``; ``clear()`` to reset.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.distributed as dist
+
+from ..utils.timing import span
+
+COLLECTIVES: Counter = Counter()
+
+
+def _counted(op: str, x: torch.Tensor) -> int:
+    """Count one collective ``op`` of ``x``; returns its bytes."""
+    nbytes = x.numel() * x.element_size()
+    COLLECTIVES[op] += 1
+    COLLECTIVES["bytes"] += nbytes
+    return nbytes
 
 
 class DataGroup:
@@ -45,29 +63,33 @@ class DataGroup:
             device = torch.device("cuda", torch.cuda.current_device())
         return cls(rank, world, device)
 
-    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+    def _reduce(self, x: torch.Tensor, op, name: str) -> torch.Tensor:
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=op, group=self.group)
+        with span("train.collective") as sp:
+            sp.note(op=name, bytes=_counted(name, y))
+            dist.all_reduce(y, op=op, group=self.group)
         return y
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over the ranks, as a new tensor (``x`` is left as
         it is); ``pmax`` and ``pmin`` alike."""
-        return self._reduce(x, dist.ReduceOp.SUM)
+        return self._reduce(x, dist.ReduceOp.SUM, "psum")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MAX)
+        return self._reduce(x, dist.ReduceOp.MAX, "pmax")
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MIN)
+        return self._reduce(x, dist.ReduceOp.MIN, "pmin")
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's 1-D ``x`` (equal lengths), concatenated in rank order."""
         x = x.contiguous()
-        if self.backend == "nccl":
-            out = x.new_empty(self.world_size * x.shape[0])
-            dist.all_gather_into_tensor(out, x, group=self.group)
-            return out
-        parts = [torch.empty_like(x) for _ in range(self.world_size)]
-        dist.all_gather(parts, x, group=self.group)
+        with span("train.collective") as sp:
+            sp.note(op="all_gather", bytes=_counted("all_gather", x))
+            if self.backend == "nccl":
+                out = x.new_empty(self.world_size * x.shape[0])
+                dist.all_gather_into_tensor(out, x, group=self.group)
+                return out
+            parts = [torch.empty_like(x) for _ in range(self.world_size)]
+            dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts)

@@ -6,7 +6,10 @@ up to ``BATCH_MERGES`` merges, vocab reconstruction on the host from the
 replicated merge log. Every rank returns the same result; only rank 0
 reports progress. The merge list equals the single-chip trainer's and the
 reference's for any world size (the exact global argmax, see
-``parallel/dist_train.py``).
+``parallel/dist_train.py``). Spans as the single-chip trainer's:
+``train.dedup`` (``symbols``), ``train.upload`` (``capacity``, ``ranks``),
+``train.batch`` (``merges``, ``capacity``) and ``train.read`` (``site``
+``summary``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..core.trainer_ref import ProgressFn, TrainingResult
 from ..core.vocab import Vocab
 from ..ops.ingest import SymbolStream, make_stream
 from ..ops.trainer import resolve_device
+from ..utils.timing import span
 from .dist_train import HOST_READS, dist_train_batch, init_dist_state, shard_stream
 from .mesh import DataGroup
 
@@ -47,7 +51,9 @@ class DistributedTrainer:
         dedup: bool = True,
         on_progress: ProgressFn | None = None,
     ) -> TrainingResult:
-        stream = make_stream(data, word_starts, dedup=dedup)
+        with span("train.dedup") as sp:
+            stream = make_stream(data, word_starts, dedup=dedup)
+            sp.note(symbols=stream.n)
         return self.train_stream(stream, target_vocab_size, on_progress)
 
     def train_stream(
@@ -59,10 +65,12 @@ class DistributedTrainer:
         if stream.n == 0:
             raise ValueError("No symbols to train on — corpus is empty after pre-processing")
         g = self.group
-        sym, w, n = shard_stream(stream.symbols[: stream.n], stream.weights[: stream.n], g.world_size)
-        state = init_dist_state(g, sym, w, n, self.vocab.next_token_id)
-        if g.device.type == "cuda":
-            torch.cuda.synchronize(g.device)  # upload outside the clock
+        with span("train.upload") as sp:
+            sym, w, n = shard_stream(stream.symbols[: stream.n], stream.weights[: stream.n], g.world_size)
+            state = init_dist_state(g, sym, w, n, self.vocab.next_token_id)
+            sp.note(capacity=sym.shape[1], ranks=g.world_size)
+            if g.device.type == "cuda":
+                torch.cuda.synchronize(g.device)  # upload outside the clock
         merges: list[tuple[int, int, int]] = []
         merge_counts: list[int] = []
         merges_needed = max(target_vocab_size - self.vocab.size, 0)
@@ -73,12 +81,16 @@ class DistributedTrainer:
 
         while total_done < merges_needed and not early_stop:
             batch = min(self.batch_merges, merges_needed - total_done)
-            state = dist_train_batch(g, state, batch)
+            with span("train.batch") as sp:
+                sp.note(merges=batch, capacity=state.symbols.shape[0])
+                state = dist_train_batch(g, state, batch)
             # one packed read per batch; the shard sizes are rank-local, so
             # the global symbol count comes out of a psum
             symbol_count = g.psum(state.n.reshape(1))
             scalars = torch.stack([state.recounts, state.duals, state.merges_done, state.early_stop])
-            packed = torch.cat([state.merge_log, scalars, symbol_count]).tolist()
+            packed = torch.cat([state.merge_log, scalars, symbol_count])
+            with span("train.read", "summary"):
+                packed = packed.tolist()
             HOST_READS["summary"] += 1
             log = packed[: BATCH_MERGES * 3]
             recounts_total, duals_total, merges_done, early, symbol_count = packed[-5:]

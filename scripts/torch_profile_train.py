@@ -61,7 +61,7 @@ def main() -> int:
         print("no CUDA device available", file=sys.stderr)
         return 2
 
-    from chip_smoke import counted_collectives, synth_corpus
+    from chip_smoke import synth_corpus
     from gpu_bpe_tpu_torch import Trainer, api
     from gpu_bpe_tpu_torch.ops import build
     from gpu_bpe_tpu_torch.ops import train_step as ts
@@ -80,6 +80,7 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         if args.dist:
             from gpu_bpe_tpu_torch.parallel import DistributedTrainer, dist_train, one_rank_group
+            from gpu_bpe_tpu_torch.parallel.mesh import COLLECTIVES
 
             group = stack.enter_context(one_rank_group("cuda"))
             make = lambda: DistributedTrainer(group)  # noqa: E731
@@ -96,9 +97,10 @@ def main() -> int:
         ts.HOST_READS.clear()
         if args.dist:
             dist_train.HOST_READS.clear()
+            COLLECTIVES.clear()
         timing.clear()
         timing.enable()
-        with torch.profiler.profile(activities=acts) as prof, counted_collectives() as coll:
+        with torch.profiler.profile(activities=acts) as prof:
             t0 = time.time_ns()  # the clock of the spans and of the profiler's events
             traced = make().train_stream(stream, target_vocab_size=target)
             torch.cuda.synchronize()
@@ -108,7 +110,7 @@ def main() -> int:
         reads = dist_train.HOST_READS if args.dist else ts.HOST_READS
         extra = {"host_reads_by_site": dict(reads), "duals": traced.duals}
         if args.dist:
-            extra["collectives"] = dict(coll)
+            extra["collectives"] = dict(COLLECTIVES)
     by_kernel = {}
     dtoh = 0
     for ev in prof.events():
