@@ -72,7 +72,7 @@ DIST_MERGES = 64
 RUNS = 5
 DEVICE_PASSES = 5  # chained passes behind a device MB/s
 TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
-TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match")
+TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match", "chunk_walk")
 PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
 BENCH_KERNELS = (*TRAIN_KERNELS, PROBE_LESS, *TOKENIZE_KERNELS)
 
@@ -224,7 +224,8 @@ def tokenize_row(torch, tok, data: bytes, passes: int = DEVICE_PASSES) -> dict:
             "bytes_per_token": pass_bytes / max(1, tokens), "tokens": tokens, "pass_ms": rates["pass_ms"],
             "max_token_len": t.max_token_len, "stab_levels": 1 + len(t.stab["levels"]) if t.stab else 0,
             "dense_lengths": t.dense_lengths,
-            "walk": "scan64" if t.max_token_len <= ttz._MAX_WALK_STEP else "gather",
+            "walk": "kernel" if tok.device.type == "cuda"
+            else "scan64" if t.max_token_len <= ttz._MAX_WALK_STEP else "gather",
             "pass_mb": pass_bytes >> 20, "rank_space": rates["rank_space"]}
 
 

@@ -53,9 +53,10 @@ Phases, each printing one JSON line:
    16 MB for both vocabs; on a 1 MB cut the card's ids equal the port's CPU
    path and GreedyTrieEncoder; decode(ids) returns the corpus;
 10. tokenize kernel checks: each of compact_valid, compact_mask,
-   expand_to_mask, overlay_fit and dense_match (the long-token tails of
-   both vocabs, over the stab join's result) against its plain version on
-   the card
+   expand_to_mask, overlay_fit, dense_match (the long-token tails of
+   both vocabs, over the stab join's result) and chunk_walk (both passes,
+   and random match tables: `walk_edge_cases`) against its plain version
+   on the card
    (tolerance 0; compaction outputs on their first `total` entries), on the
    inputs the main path gave it (recorded during phase 8) and on synthetic
    edge cases (all or none dropped, a ragged tail, ids >= 0x8000, random
@@ -218,7 +219,15 @@ Phases, each printing one JSON line:
    hits of each; at the 16 MB pass the kernel's ms beside the whole match
    table's (in turns), host_ms, device_ms and device_ops (one kernel), the
    plain version's ms, the byte bound and its fraction, the table's shape
-   and the pass's device and wall MB/s.
+   and the pass's device and wall MB/s;
+28. chunk_walk: `chunk_walk.cu` (the walk, one launch a pass) at the
+   tokenize cells' shape, a 16 MiB pass of 2^24 positions, with phase 27's
+   1K vocab and phase 7's 8K vocab, and on a 4 MiB pass with the 1K vocab
+   plus 80-byte tokens: bitwise against the plain walk (the gather walk
+   past 63 bytes), one launch and one device operation a call; the
+   kernel's ms, host_ms, device_ms, the 21-byte-a-position bound and its
+   fraction, and the plain walk's ms by CUDA events and by the host's
+   clock around a synchronised call.
 
 The launch counts of the kernels' line are the sums over the main-path
 runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
@@ -226,7 +235,7 @@ runs (phases 4, 8, 11-17, 19 and 20, every rank's in phase 15, phase
 after its selftest), each counted from 0; the
 explicit-probe mode runs on the selftest's path only, and
 `bitonic_rounds`, which no training or tokenize path calls, on phase
-25's run of the microbenchmark; phase 27's calls are not counted.
+25's run of the microbenchmark; phases 27 and 28's calls are not counted.
 Then the kernels' JSON line, the nvidia-smi line and, last, the result line.
 Any mismatch or exception exits non-zero; without a CUDA device the script
 exits non-zero before printing anything.
@@ -288,6 +297,7 @@ KERNELS = {
     "overlay_fit": (f"{CSRC}/overlay_fit.cu", "gpu_bpe_tpu/ops/stab_kernels.py:81"),
     "bitonic_rounds": (f"{CSRC}/bitonic_rounds.cu", "scripts/microbench_bitonic.py:44"),
     "dense_match": (f"{CSRC}/dense_match.cu", "none: own design (the dense join is plain jnp)"),
+    "chunk_walk": (f"{CSRC}/chunk_walk.cu", "none: own design (the walk is a lax.scan)"),
 }
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
 KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
@@ -916,10 +926,81 @@ def overlay_edge_cases(rng, tile: int) -> list:
     return out
 
 
+def walk_reference(args):
+    """The plain walk of ``chunk_walk``'s arguments, on their device: the
+    lockstep loop (int32 ``[n]``, as the kernel gives it) where no match is
+    longer than 63 bytes, else the gather walk, whose chunks are
+    left-aligned (so PAD is stripped before the two are compared). Returns
+    (tokens, strip)."""
+    from gpu_bpe_tpu_torch.ops import tokenize as ttz
+    from gpu_bpe_tpu_torch.ops import walk_kernels as wk
+
+    if int(args[1].max()) <= wk.MAX_WALK_STEP:
+        return ttz._i32(wk.chunk_walk_plain(*args).reshape(-1)), False
+    return ttz.chunk_walk_gather(*args), True
+
+
+def walk_diff(torch, args) -> float:
+    """``chunk_walk`` (the kernel) against ``walk_reference`` on ``args``."""
+    from gpu_bpe_tpu_torch.ops import walk_kernels as wk
+
+    got = wk.chunk_walk(*args)
+    torch.cuda.synchronize()  # a fault in the kernel surfaces here
+    want, strip = walk_reference(args)
+    if strip:
+        got, want = got[got != -1], want[want != -1]
+    return max_abs_diff([got], [want])
+
+
+def walk_edge_cases(torch, dev) -> list:
+    """(label, args) of ``chunk_walk`` on random match tables: chunk sizes
+    of 1, 500, 512, 2048, 8193 (one chunk a block) and the kernel's largest,
+    a partial last block, the input ending at the pass's end, on a chunk
+    boundary, inside a chunk and at 0, steps up to 63 and up to twice the
+    chunk, every position unmatched, ids past 16 bits and past 32 bits,
+    and views that start inside their allocations."""
+    from gpu_bpe_tpu_torch.ops import walk_kernels as wk
+
+    rng = np.random.default_rng(8642)
+
+    def table(cs, chunks, top, unmatched=0.2, id_hi=1 << 16):
+        n = cs * chunks
+        mid = rng.integers(0, id_hi, size=n)
+        mid[rng.random(n) < unmatched] = -1
+        mlen = rng.integers(0, top + 1, size=n)
+        data = rng.integers(0, 256, size=n).astype(np.uint8)
+        return [torch.from_numpy(a).to(dev) for a in (mid, mlen, data)]
+
+    group = wk.chunks_per_block(512)
+    cases = []
+    for label, cs, chunks, top, end, kw in (
+        ("chunk512_pass_end", 512, 64, 63, 0, {}),
+        ("chunk512_partial_last_block_long_steps", 512, 5 * group + 3, 1024, 217, {}),
+        ("chunk2048_on_a_chunk_boundary", 2048, 40, 63, 2 * 2048, {}),
+        ("chunk2048_long_steps", 2048, 40, 4096, 999, {}),
+        ("chunk500_inside_a_chunk", 500, 77, 63, 123, {}),
+        ("chunk1", 1, 4099, 5, 1, {}),
+        ("chunk8193_one_a_block", 8193, 5, 9000, 4000, {}),
+        ("chunk_max", wk.MAX_CHUNK, 3, 63, 5, {}),
+        ("input_empty", 512, 20, 63, 512 * 20, {}),
+        ("all_unmatched", 512, 20, 63, 300, {"unmatched": 1.0}),
+        ("ids_past_16_bits", 512, 20, 63, 0, {"id_hi": 1 << 31}),
+        ("ids_past_32_bits", 512, 20, 63, 0, {"id_hi": 1 << 40}),
+    ):
+        mid, mlen, data = table(cs, chunks, top, **kw)
+        cases.append((label, (mid, mlen, data, mid.numel() - end, cs)))
+    mid, mlen, data = table(512, 30, 63)
+    n = mid.numel() - 3 * 512
+    cases.append(("views_inside_allocations", (mid[5 : 5 + n], mlen[3 : 3 + n], data[7 : 7 + n], n - 50, 512)))
+    return cases
+
+
 def tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, dev) -> dict:
     """Phase 10: each tokenize kernel against its plain version on the card,
     on the inputs recorded from the main path and on synthetic edge cases;
     times at the main path's first call's shapes."""
+    from gpu_bpe_tpu_torch.ops import walk_kernels
+
     rng = np.random.default_rng(4321)
 
     def i32(a):
@@ -1025,6 +1106,16 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, de
         err["dense_match"] = max(err["dense_match"],
                                  max_abs_diff(got, dense_kernels.dense_match_plain(*args, **kw)))
         cases["dense_match"] += 1
+    # chunk_walk: the main path's passes (the 8K and 64K vocabs' 16 MB) and
+    # random match tables
+    for args, _ in calls["chunk_walk"]:
+        err["chunk_walk"] = max(err["chunk_walk"], walk_diff(torch, args))
+        cases["chunk_walk"] += 1
+    for label, args in walk_edge_cases(torch, dev):
+        e = walk_diff(torch, args)
+        if e != 0.0:
+            raise AssertionError(f"chunk_walk disagrees on {label}: {e}")
+        cases["chunk_walk"] += 1
     for k, e in err.items():
         if e != 0.0 or cases[k] == 0:
             raise AssertionError(f"{k} disagrees with its plain version: max_abs_err {e}, cases {cases[k]}")
@@ -1042,7 +1133,9 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, de
     ex_zeros = torch.zeros(ex_mask.shape[0], dtype=torch.int32, device=dev)
     (ov_skp, ov_len), ov_kw = calls["overlay_fit"][0]
     dm_args, dm_kw = calls["dense_match"][0]
+    cw_args, _ = calls["chunk_walk"][0]
     n_cv, n_cm, n_ex, n_dm = cv_vals.numel(), cm_vals.numel(), ex_mask.numel(), dm_args[0].numel()
+    n_cw = cw_args[0].numel()
     timing = {
         "compact_valid": (lambda: kernels.compact_valid(cv_vals),
                           lambda: kernels.compact_mask_plain(cv_vals),
@@ -1070,12 +1163,17 @@ def tokenize_kernel_phase(torch, kernels, stab_kernels, dense_kernels, calls, de
                         33 * n_dm,
                         {"n": n_dm, "lengths": dm_args[1].lengths, "slots": dm_args[1].slots.shape[0],
                          "incoming": True}),
+        "chunk_walk": (lambda: walk_kernels.chunk_walk(*cw_args),
+                       lambda: walk_kernels.chunk_walk_plain(*cw_args),
+                       None,
+                       21 * n_cw,
+                       {"n": n_cw, "input_len": cw_args[3], "chunk": cw_args[4]}),
     }
     # inputs that fit in the L2 can stay there between the back-to-back
     # timed calls; the level-1 stream (77 MB) cannot
     input_bytes = {"compact_valid": 4 * n_cv, "compact_mask": 4 * n_cm * (1 + len(cm_extras)),
                    "expand_to_mask": n_ex + 4 * ex_vals.numel(), "overlay_fit": 4 * ov_skp.numel(),
-                   "dense_match": 17 * n_dm}
+                   "dense_match": 17 * n_dm, "chunk_walk": 17 * n_cw}
     rows = {}
     for k, (kern, plain, library, nbytes, shape) in timing.items():
         if library:  # the kernel and the library call in turns
@@ -2231,6 +2329,67 @@ def dense_match_phase(torch, corpus: bytes, vocab1k, rows: dict) -> None:
         raise AssertionError(f"dense_match put {prof['device_op_names']} on the card per call, want one kernel")
 
 
+def walk_phase(torch, corpus: bytes, vocabs: dict, rows: dict) -> dict:
+    """Phase 28: ``chunk_walk.cu`` at the tokenize cells' pass shape (the
+    16 MiB shard as one pass of 2^24 positions) for each of ``vocabs``,
+    and on a vocab with 80-byte tokens: bitwise against the plain walk (the
+    gather walk past 63 bytes), one launch a call; the kernel's ms (CUDA
+    events), host_ms, device_ms and device_ops, the byte bound, and the
+    plain walk's ms by CUDA events and by the host's clock with the card
+    synchronised around each call (no profiler). Returns the lines."""
+    from gpu_bpe_tpu_torch import Tokenizer
+    from gpu_bpe_tpu_torch.ops import kernels
+    from gpu_bpe_tpu_torch.ops import tokenize as ttz
+    from gpu_bpe_tpu_torch.ops import walk_kernels as wk
+
+    dev = torch.device("cuda")
+    long_lines = sorted({corpus[81 * i : 81 * i + 80] for i in range(0, 4000, 7)})
+    shapes = [(label, vocab, corpus[: 1 << 24]) for label, vocab in vocabs.items()]
+    shapes.append(("gather_80_byte_tokens", vocabs[next(iter(vocabs))] + long_lines, corpus[: 4 << 20]))
+    lines = {}
+    for label, vocab, data in shapes:
+        tok = Tokenizer(vocab)
+        n_in, cs = len(data), tok.chunk_size
+        buf = torch.zeros(tok.capacity(n_in), dtype=torch.uint8, device=dev)
+        buf[:n_in] = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
+        stab, dense = tok._on_device[buf.device]
+        mid, mlen = ttz.build_match_table(buf, tok.tables, stab, dense, n_in, cs, tok.rank_mode)
+        args = (mid, mlen, buf, n_in, cs)
+        before = kernels.LAUNCHES["chunk_walk"]
+        err = walk_diff(torch, args)
+        launched = kernels.LAUNCHES["chunk_walk"] - before
+        if err != 0.0 or launched != 1:
+            raise AssertionError(f"chunk_walk on {label}: max_abs_err {err}, launches {launched}")
+        kern = lambda: wk.chunk_walk(*args)  # noqa: E731
+        plain = lambda: walk_reference(args)  # noqa: E731
+        ms, plain_ms = time_ms(torch, kern, 20), time_ms(torch, plain, 5)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = dict(host_ms=host_ms(torch, kern, 50), **device_profile(torch, kern))
+        n = buf.numel()
+        bound_ms = 21 * n / HBM_BYTES_PER_S * 1e3
+        longest = int(mlen.max())
+        line = {"phase": "chunk_walk", "vocab": label, "n": n, "input_len": n_in, "chunk": cs,
+                "max_token_len": tok.tables.max_token_len, "max_match_len": longest,
+                "tokens": int(kern().ne(-1).sum()), "max_abs_err": err, "tolerance": 0,
+                "launches_per_call": launched, "ms": ms, **prof, "bytes": 21 * n, "bound_ms": bound_ms,
+                "bound_by": "bytes", "bound_fraction": bound_ms / ms,
+                "plain": "gather" if longest > wk.MAX_WALK_STEP else "lockstep", "plain_ms": plain_ms,
+                "plain_wall_ms": statistics.median(walls), "plain_wall_ms_all": walls}
+        emit(line)
+        lines[label] = line
+        if round(prof["device_ops"]) != 1:
+            raise AssertionError(f"chunk_walk put {prof['device_op_names']} on the card per call, want one kernel")
+    rows["chunk_walk"]["max_abs_err"] = max(rows["chunk_walk"]["max_abs_err"],
+                                            max(v["max_abs_err"] for v in lines.values()))
+    return lines
+
+
 def replace_state(ts, st):
     """A copy of ``st`` whose tensors can be reused by several calls."""
     from dataclasses import fields
@@ -2255,7 +2414,7 @@ def main() -> int:
         return 2
     from gpu_bpe_tpu_torch import Tokenizer, Trainer
     from gpu_bpe_tpu_torch.core import GreedyTrieEncoder
-    from gpu_bpe_tpu_torch.ops import build, dense_kernels, kernels, stab_kernels
+    from gpu_bpe_tpu_torch.ops import build, dense_kernels, kernels, stab_kernels, walk_kernels
     from gpu_bpe_tpu_torch.ops import tokenize as ttz
     from gpu_bpe_tpu_torch.ops import train_step as ts
     from gpu_bpe_tpu_torch.ops.ingest import make_stream, pad_stream
@@ -2279,6 +2438,11 @@ def main() -> int:
         got = getattr(build.load()[lib], fn)()
         if got != want:
             raise AssertionError(f"{lib}.cu tiles {got} entries, the wrapper's module says {want}")
+    for cs in (1, 500, 512, 2048, 8193, walk_kernels.MAX_CHUNK):
+        got = build.load()["chunk_walk"].cw_chunks_per_block(cs)
+        if got != walk_kernels.chunks_per_block(cs):
+            raise AssertionError(f"chunk_walk.cu walks {got} chunks a block at chunk {cs}, "
+                                 f"ops/walk_kernels.py says {walk_kernels.chunks_per_block(cs)}")
     arena = build.load()["merge_compact_tracked"].mc_arena_words()
     if arena != kernels.ARENA_WORDS:
         raise AssertionError(f"merge_compact_tracked.cu's arena has {arena} words, "
@@ -2415,6 +2579,7 @@ def main() -> int:
     bitonic_phase(torch, smi, launches, rows)
     bench_phase(torch, api_out, launches, smi)
     dense_match_phase(torch, corpus, api_out["nodedup"].vocab[:1024], rows)
+    walk_phase(torch, corpus, {"1024": api_out["nodedup"].vocab[:1024], "8192": vocabs["8192"]}, rows)
 
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": launches[k],

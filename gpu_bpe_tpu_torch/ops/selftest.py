@@ -1,7 +1,8 @@
 """Kernel selftest: every kernel of the port on one device, held to numpy
 references and to its plain PyTorch version (the port's counterpart of
 ``gpu_bpe_tpu/ops/selftest.py``, with the same cases, names, seeds and
-sizes, and two more: ``overlay_fit`` and ``dense_match``).
+sizes, and three more: ``overlay_fit``, ``dense_match`` and
+``chunk_walk``).
 
 ``run_kernel_selftest()`` runs on the card by default: it is how a user
 checks the CUDA kernels on their own card. ``device="cpu"`` runs the same
@@ -23,7 +24,7 @@ BLOCK = 32768  # stream length of the cases' block-boundary layouts
 CASES = (
     "random_stream", "overlap_quirk", "block_boundary_sites", "poisoned_tail", "tracked_hist_multiblock",
     "count_pairs2", "window_probe_prep", "probe_count_heavy", "window_post", "compact_valid",
-    "compact_expand_roundtrip", "overlay_fit", "dense_match",
+    "compact_expand_roundtrip", "overlay_fit", "dense_match", "chunk_walk",
 )
 
 
@@ -349,5 +350,35 @@ def run_kernel_selftest(device: str | torch.device = "cuda") -> dict[str, bool]:
             want = dense_match_plain(args[0], on_cpu, *args[1:])
             ok &= _equal(got, want) and bool((want[1] > 1).any())
     results["dense_match"] = bool(ok)
+
+    # 10. chunk_walk (no Pallas selftest case): random match tables (a fifth
+    #     unmatched, ids past 16 bits) at chunks of 512 and 2048 with the
+    #     input ending inside a chunk; steps up to 63 against the plain walk,
+    #     and on the card steps up to twice the chunk against the gather
+    #     walk with PAD stripped (on the CPU that walk is the path itself)
+    from .tokenize import chunk_walk_gather
+    from .walk_kernels import MAX_WALK_STEP, chunk_walk, chunk_walk_plain
+
+    r5 = np.random.default_rng(19)
+    ok = True
+    for cs, chunks in ((512, 40), (2048, 9)):
+        n = cs * chunks
+        mid = r5.integers(-1, (1 << 16) + 10, size=n)
+        mid[r5.random(n) < 0.2] = -1
+        data = torch.from_numpy(r5.integers(0, 256, size=n).astype(np.uint8))
+        input_len = n - cs - 77
+        for top in (MAX_WALK_STEP, 2 * cs):
+            if top > MAX_WALK_STEP and dev.type == "cpu":
+                continue
+            mlen = torch.from_numpy(r5.integers(0, top + 1, size=n))
+            args = (torch.from_numpy(mid), mlen, data)
+            got = _np(chunk_walk(*[a.to(dev) for a in args], input_len, cs))
+            if top == MAX_WALK_STEP:
+                want = chunk_walk_plain(*args, input_len, cs).reshape(-1).numpy().astype(np.uint32).view(np.int32)
+            else:
+                want = _np(chunk_walk_gather(*args, input_len, cs))
+                got, want = got[got != -1], want[want != -1]
+            ok &= np.array_equal(got, want) and (want != -1).sum() > chunks
+    results["chunk_walk"] = bool(ok)
 
     return {k: results[k] for k in CASES}

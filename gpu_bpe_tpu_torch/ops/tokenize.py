@@ -16,10 +16,14 @@ greedy reference ``core.encoder_ref.GreedyTrieEncoder``:
    On the card, levels >= 2 of the chain run in rank space: the positions
    that carry a prefix-group id are compacted (``compact_mask``), joined
    there, and expanded back (``expand_to_mask``).
-2. **Chunk walk** (``chunk_walk``): all chunks advance in lockstep over the
-   chunk offsets with a 64-bit emission schedule per chunk, the
-   reference's greedy rule including the token split at a chunk boundary
-   and the raw-byte fallback.
+2. **Chunk walk** (``chunk_walk``, ``ops/walk_kernels.py``): the
+   reference's greedy rule per chunk, including the token split at a chunk
+   boundary and the raw-byte fallback. On the card one launch of
+   ``chunk_walk.cu`` a pass walks every chunk, a thread each, for any token
+   length; on the CPU all chunks advance in lockstep over the chunk
+   offsets with a 64-bit emission schedule per chunk (``chunk_walk_plain``),
+   or, for tokens longer than 63 bytes, one gathered jump per step
+   (``chunk_walk_gather``).
 3. **PAD strip** (``compact_valid``): the position-aligned tokens lose
    their PAD holes on the device; the host reads back 16-bit ids.
 
@@ -43,6 +47,8 @@ from .dense_kernels import DenseHash, DenseTables, _pack_bytes, dense_match
 from .kernels import _to_i32, compact_mask, compact_valid, expand_to_mask
 from .stab_kernels import NO_GROUP, overlay_fit
 from .trainer import resolve_device
+from .walk_kernels import MAX_WALK_STEP as _MAX_WALK_STEP
+from .walk_kernels import chunk_walk
 
 _PAD_TOKEN = INVALID_TOKEN  # never a real id (ids are 16-bit)
 
@@ -64,7 +70,6 @@ _RANK_MIN_N = 1 << 20  # rank-space level chain: passes of at least this many by
 _RANK_CAP_FLOOR = 1 << 15  # smallest rank-space capacity
 _SEG_MIN_ROWS = 1 << 16  # smallest join worth segmenting
 _POS_NONE = 0x1FFFFFF  # position payload past any real position
-_MAX_WALK_STEP = 63  # longest jump of the 64-bit emission schedule
 
 
 def _stab_coverage(n_levels: int) -> int:
@@ -535,45 +540,12 @@ def build_match_table(data: torch.Tensor, tables: MatchTables, stab_rows: _StabT
     return dense_match(data, dense, input_len, chunk_size, match_id, match_len)
 
 
-def chunk_walk(match_id, match_len, data, input_len: int, chunk_size: int) -> torch.Tensor:
-    """Greedy emission per chunk, all chunks in lockstep (``tokenize.py:885``
-    and ``:948``), for match lengths up to ``_MAX_WALK_STEP``.
-
-    A Python loop over the chunk offset t keeps one 64-bit schedule per
-    chunk, bit k meaning "an emission is due at offset t + k"; bit 0 starts
-    set (each chunk emits at its first byte). Each step emits where bit 0
-    is set and schedules the next emission ``step`` bytes on. Returns the
-    tokens ``[num_chunks, chunk_size]`` int64, position-aligned with PAD
-    holes; flattening the non-PAD entries row-major gives the reference's
-    output order."""
-    n = match_id.shape[0]
-    num_chunks = n // chunk_size
-    matched = match_id >= 0
-    tok = torch.where(matched, match_id, data.to(torch.int64))
-    step = torch.clamp(torch.where(matched, match_len, 1), 1, _MAX_WALK_STEP)
-    # (pending | 1 << step) >> 1 == (pending >> 1) | 1 << (step - 1): the
-    # schedule stays below bit 63, so the signed shifts are exact
-    half = (torch.ones_like(step) << (step - 1)).view(num_chunks, chunk_size).t().contiguous()
-    pending = torch.ones(num_chunks, dtype=torch.int64, device=match_id.device)
-    emit = torch.empty(chunk_size, num_chunks, dtype=torch.int64, device=match_id.device)
-    sched = torch.empty_like(pending)
-    for t in range(chunk_size):
-        torch.bitwise_and(pending, 1, out=emit[t])
-        torch.mul(emit[t], half[t], out=sched)
-        pending >>= 1
-        pending |= sched
-    # positions past the input emit nothing (a chunk's later offsets are
-    # past it too, so what they scheduled is never read)
-    allowed = torch.arange(n, device=match_id.device) < input_len
-    keep = (emit.t() == 1) & allowed.view(num_chunks, chunk_size)
-    return torch.where(keep, tok.view(num_chunks, chunk_size), _PAD_TOKEN)
-
-
 def chunk_walk_gather(match_id, match_len, data, input_len: int, chunk_size: int) -> torch.Tensor:
-    """Greedy walk for vocabs with tokens longer than ``_MAX_WALK_STEP``
-    bytes (``tokenize.py:1001``): one gathered jump per step for every
-    chunk; returns tokens ``[num_chunks, chunk_size]`` left-aligned per
-    chunk with PAD after them."""
+    """Greedy walk on the CPU for vocabs with tokens longer than
+    ``_MAX_WALK_STEP`` bytes (``tokenize.py:1001``): one gathered jump per
+    step for every chunk. Returns int32 ``[n]``, each chunk's tokens
+    left-aligned in its row with PAD after them (``chunk_walk``'s tokens in
+    the same order once PAD is stripped)."""
     n = match_id.shape[0]
     num_chunks = n // chunk_size
     dev = match_id.device
@@ -593,7 +565,7 @@ def chunk_walk_gather(match_id, match_len, data, input_len: int, chunk_size: int
         safe = torch.clamp(pos, max=n - 1)
         toks[:, col] = torch.where(active, tok_all[safe], _PAD_TOKEN)
         pos = torch.where(active, pos + adv_all[safe], pos)
-    return toks
+    return _i32(toks.reshape(-1))
 
 
 def _concrete(device: torch.device) -> torch.device:
@@ -699,10 +671,14 @@ class Tokenizer:
             sp.note(stab=int(stab_rows is not None), dense=len(self.tables.dense_lengths))
             mid, mlen = build_match_table(buf, self.tables, stab_rows, dense, input_len,
                                           self.chunk_size, self.rank_mode)
-        walk = chunk_walk if self.tables.max_token_len <= _MAX_WALK_STEP else chunk_walk_gather
-        with span("tokenize.walk"):
+        # the card's kernel takes any token length; on the CPU the plain
+        # walk's schedule stops at _MAX_WALK_STEP bytes
+        kernel = buf.is_cuda
+        walk = chunk_walk if kernel or self.tables.max_token_len <= _MAX_WALK_STEP else chunk_walk_gather
+        with span("tokenize.walk") as sp:
+            sp.note(kernel=int(kernel))
             tokens = walk(mid, mlen, buf, input_len, self.chunk_size)
-        return compact_valid(_i32(tokens.reshape(-1)))
+        return compact_valid(tokens)
 
     def encode_bytes(self, data: bytes) -> np.ndarray:
         """Token ids of ``data`` (uint32). The passes go to ``devices`` in

@@ -14,8 +14,9 @@ tokenize_row``):
   (the full-width level chain) where the vocab has stab levels past the first
 * wall MB/s: ``encode_bytes`` end to end (upload, pass, host copy of the ids)
 * bytes per token, the longest token, stab levels, dense lengths, the walk
-  (``scan64``: the 64-bit emission schedule; ``gather``: tokens past 63
-  bytes) and whether the rank-space chain served the measured passes
+  (``kernel``: ``chunk_walk.cu`` on a card; on the CPU ``scan64``, the
+  64-bit emission schedule, or ``gather``, tokens past 63 bytes) and
+  whether the rank-space chain served the measured passes
 
     python3 scripts/torch_bench_tokenize_vocabs.py --sizes 1024 8192 32768 65536 \\
         --out docs/artifacts/torch_tokenize_rates.json

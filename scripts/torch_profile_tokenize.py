@@ -110,7 +110,7 @@ def main() -> int:
         mid, mlen = mt[2]
         wk = timed(lambda: ttz.chunk_walk(mid, mlen, buf, n, cs))
         add("walk", wk)
-        st = timed(lambda: kernels.compact_valid(ttz._i32(wk[2].reshape(-1))))
+        st = timed(lambda: kernels.compact_valid(wk[2]))
         add("strip", st)
         ids, total = st[2]
 

@@ -13,8 +13,8 @@ the port on ``--device``, the card unless "cpu" is asked for:
   soak's three vocab shapes (a small vocab on the dense join; the stab
   join with 10-60 tokens of 9-32 bytes; 33-60-byte tokens), and two shapes
   of the port's own, each with its own seeds: on every fourth seed
-  64-200-byte tokens, which take the gather walk (``chunk_walk_gather``),
-  and on every fifth seed 600-1500 tokens of 9-32 bytes, enough to chain
+  64-200-byte tokens, steps past 63 bytes (``chunk_walk.cu`` on a card,
+  the gather walk ``chunk_walk_gather`` on the CPU), and on every fifth seed 600-1500 tokens of 9-32 bytes, enough to chain
   stab levels >= 2 (a level needs 512 tokens beyond the one before). Those
   also run with ``rank_mode="on"`` (the rank-space chain: ``compact_mask``
   and ``expand_to_mask``) and must equal the full-width ids, the
@@ -34,7 +34,8 @@ of every failure, every kernel's launches over the run and, on a card, its
 name and power limit from ``nvidia-smi``. On a card every kernel must have
 launched: the window and probe-less modes of ``merge_compact_tracked``,
 ``count_pairs2``, ``window_post``, ``compact_valid``, ``compact_mask``,
-``expand_to_mask`` and ``overlay_fit``. The script exits 1 on any failure
+``expand_to_mask``, ``overlay_fit``, ``dense_match`` and ``chunk_walk``.
+The script exits 1 on any failure
 (a failing seed reproduces deterministically) and 2 without the card it
 was asked to run on.
 """
@@ -68,7 +69,7 @@ SHAPES = ("dense", "chained", "wide")  # the JAX soak's vocab shapes, by rng.int
 N_SHORT = 2600  # the port's own shapes: the vocab before its long tokens
 LOOPS = ("default", "multi_merge", "force_recount", "dist")  # trainer trial s takes LOOPS[s % 4]
 KERNELS = ("merge_compact_tracked", kernels.PROBE_LESS, "count_pairs2", "window_post",
-           "compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match")
+           "compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match", "chunk_walk")
 
 
 def random_vocab(rng, n_total, long_spec, min_long=9):

@@ -33,7 +33,7 @@ def _jax_case_names() -> list[str]:
 
 def test_selftest_on_cpu_is_all_true():
     results = selftest.run_kernel_selftest(device="cpu")
-    assert list(results) == list(selftest.CASES) == _jax_case_names() + ["overlay_fit", "dense_match"]
+    assert list(results) == list(selftest.CASES) == _jax_case_names() + ["overlay_fit", "dense_match", "chunk_walk"]
     assert all(results.values()), results
 
 

@@ -228,7 +228,8 @@ def test_encode_bytes_gives_its_spans(case, monkeypatch):
     table = next(s for s in sp if s.name == "tokenize.match_table")
     assert table.parent == passes[0]
     assert table.attrs == {"stab": int(case == "rank"), "dense": len(tok.tables.dense_lengths)}
-    assert next(s for s in sp if s.name == "tokenize.walk").parent == passes[0]
+    walk = next(s for s in sp if s.name == "tokenize.walk")
+    assert walk.parent == passes[0] and walk.attrs == {"kernel": 0}
     sites = [s.attrs["site"] for s in sp if s.name == "tokenize.read"]
     assert sites[-1] == "ids" and sites.count("ids") == 1
     assert ("rank_count" in sites) == (case == "rank") and ("gather_step" in sites) == (case == "gather")
