@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _require, _stream
+from .build import LAUNCHES, check, current_stream, on_cpu, on_device, require
 
 ROWS, LANES = 1024, 128  # one block of the script: a 2^17-element segment
 
@@ -38,7 +38,7 @@ def _check_inputs(a, b, c, rounds) -> None:
     if len(shape) != 2 or shape[1] != LANES or shape[0] == 0 or shape[0] % ROWS:
         raise ValueError(f"bitonic_rounds: want [blocks * {ROWS}, {LANES}] with blocks >= 1, got {shape}")
     for name, t in zip("abc", (a, b, c)):
-        _require(t, torch.int32, shape, name)
+        require(t, torch.int32, shape, name)
     if not isinstance(rounds, int) or not 0 <= rounds < 2**31:
         raise ValueError(f"bitonic_rounds: rounds must be an int in [0, 2^31), got {rounds!r}")
 
@@ -75,7 +75,7 @@ def bitonic_rounds(a, b, c, rounds: int):
     int32 words ``a``, ``b``, ``c``: three new tensors of the same shape.
     On the card they are views of one ``[3, rows, 128]`` allocation."""
     _check_inputs(a, b, c, rounds)
-    if _on_cpu(a, b, c):
+    if on_cpu(a, b, c):
         return bitonic_rounds_plain(a, b, c, rounds)
     from .build import load
 
@@ -84,10 +84,10 @@ def bitonic_rounds(a, b, c, rounds: int):
     step = a.numel() * 4
     base = out.data_ptr()
     lib = load()["bitonic_rounds"]
-    stream = _stream(dev)
-    with _on_device(dev):
+    stream = current_stream(dev)
+    with on_device(dev):
         rc = lib.bitonic_rounds(a.data_ptr(), b.data_ptr(), c.data_ptr(), base, base + step, base + 2 * step,
                                 a.shape[0], rounds, stream)
-    _check(rc, "bitonic_rounds")
+    check(rc, "bitonic_rounds")
     LAUNCHES["bitonic_rounds"] += 1
     return out.unbind(0)

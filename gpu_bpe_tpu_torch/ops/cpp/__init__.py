@@ -1,1 +1,1 @@
-"""Source of the native ingest library and its build."""
+"""Source of the native ingest library, built by ``utils/build.py``."""

@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream
+from .build import LAUNCHES, check, current_stream, on_cpu, on_device, ptr, require
 
 TILE = 2048  # positions per tile of dense_match.cu (TILE_N, dm_tile_positions())
 MAX_LEN = 1 << 16  # longest token the kernel can match (dense_match.cu MAX_STAGE_LEN)
@@ -232,15 +232,15 @@ def dense_match(data, dense: DenseTables, input_len: int, chunk_size: int, match
     at most ``MAX_LEN`` bytes (longer ones only where ``chunk_size`` and the
     input allow them)."""
     incoming = () if match_id is None else (match_id, match_len)
-    if _on_cpu(data, *incoming):
+    if on_cpu(data, *incoming):
         return dense_match_plain(data, dense, input_len, chunk_size, match_id, match_len)
     from .build import load
 
     dev = data.device
     n = data.shape[0]
-    _require(data, torch.uint8, (n,), "data")
+    require(data, torch.uint8, (n,), "data")
     for t in incoming:
-        _require(t, torch.int64, (n,), "incoming match")
+        require(t, torch.int64, (n,), "incoming match")
     if dense.slots.device != dev or not dense.lengths:
         raise ValueError(f"dense_match: tables on {dense.slots.device} with {len(dense.lengths)} lengths, "
                          f"data on {dev}")
@@ -251,13 +251,13 @@ def dense_match(data, dense: DenseTables, input_len: int, chunk_size: int, match
         raise ValueError(f"dense_match: tokens of {max_len} bytes can match, the kernel takes {MAX_LEN}")
     lib = load()["dense_match"]
     out = torch.empty(2, n, dtype=torch.int64, device=dev)  # match_id, match_len
-    in_id, in_len = (0, 0) if match_id is None else (_ptr(match_id), _ptr(match_len))
-    with _on_device(dev):
+    in_id, in_len = (0, 0) if match_id is None else (ptr(match_id), ptr(match_len))
+    with on_device(dev):
         rc = lib.dense_match(
-            _ptr(data), n, int(input_len), int(chunk_size), _ptr(dense.hash_lengths), len(dense.lengths),
-            max_len, _ptr(dense.slots), dense.slots.shape[0], _ptr(dense.words), dense.words.numel(),
-            dense.max_probes, _ptr(dense.byte_ids), in_id, in_len, _ptr(out[0]), _ptr(out[1]), _stream(dev),
+            ptr(data), n, int(input_len), int(chunk_size), ptr(dense.hash_lengths), len(dense.lengths),
+            max_len, ptr(dense.slots), dense.slots.shape[0], ptr(dense.words), dense.words.numel(),
+            dense.max_probes, ptr(dense.byte_ids), in_id, in_len, ptr(out[0]), ptr(out[1]), current_stream(dev),
         )
-    _check(rc, "dense_match")
+    check(rc, "dense_match")
     LAUNCHES["dense_match"] += 1
     return out[0], out[1]

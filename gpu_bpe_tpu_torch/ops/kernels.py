@@ -5,7 +5,8 @@ versions and launch counters (counterpart of
 Each public wrapper takes the plain version for tensors that lie on the
 CPU, and launches its hand-written CUDA kernel (``ops/csrc``) for CUDA
 tensors, raising if the build or the launch fails; there is no fallback.
-``LAUNCHES`` counts kernel launches per wrapper.
+``LAUNCHES`` (``ops/build.py``, with the rest of the launch plumbing)
+counts kernel launches per wrapper.
 
 Storage conventions (shared with the CUDA sources):
 
@@ -31,13 +32,12 @@ meaningful when its weight is > 0.
 
 from __future__ import annotations
 
-import contextlib
 import struct
-from collections import Counter
 
 import torch
 
 from ..constants import TOKEN_MASK, WORD_START_BIT
+from .build import LAUNCHES, cached_scratch, check, check_scratch, current_stream, on_cpu, on_device, ptr, require
 
 W_SLOTS = 256  # candidate window: K_CANDIDATES + S_CREATED
 N_PROBES = 64  # fused probe-pair slots
@@ -46,7 +46,6 @@ N_SCALARS = 18  # window_post's packed scalars before probes and pcnt
 INVALID = 0xFFFFFFFF
 I32_MAX = 2**31 - 1
 
-LAUNCHES: Counter = Counter()  # kernel launches per wrapper; clear() to reset
 PROBE_LESS = "merge_compact_tracked/probe-less"  # LAUNCHES key of the no-window mode
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # LAUNCHES key of the explicit-probe mode
 
@@ -63,59 +62,6 @@ def _dev_scalar(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor) and x.dtype is torch.int64 and x.dim() == 0 and x.device == device:
         return x
     return _scalar(x, device)
-
-
-def _ptr(t: torch.Tensor) -> int:
-    """Device address of ``t``, for a ``c_void_p`` argument (ctypes takes the
-    int as it is, with no wrapper object per argument)."""
-    return t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    """PyTorch's current stream on ``device`` as a raw handle (the lookup
-    Triton's launcher makes; ``torch.cuda.current_stream`` builds a Stream
-    object per call); the caller launches inside ``_on_device(device)`` so
-    that the kernel runs on that card."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-_SAME_DEVICE = contextlib.nullcontext()
-
-
-def _on_device(device: torch.device):
-    """A context in which ``device`` is the current CUDA device: nothing to
-    do when it already is (the usual case), else ``torch.cuda.device``."""
-    return _SAME_DEVICE if torch.cuda.current_device() == device.index else torch.cuda.device(device)
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-
-
-# Look-back and reduction scratch of the kernels, by (kernel, device index,
-# size, stream): zeroed once when it is made. merge_compact_tracked.cu and
-# count_pairs2.cu leave it zeroed again, so no call clears it;
-# expand_to_mask.cu and overlay_fit.cu clear it with one memset per call.
-# A stream orders the calls that share one.
-_SCRATCH: dict[tuple, torch.Tensor] = {}
-
-
-def cached_scratch(key: tuple, device: torch.device, words) -> torch.Tensor:
-    """The int64 scratch of ``key``, made zeroed with ``words()`` words on
-    ``device`` (on its current stream) at first use."""
-    buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = _SCRATCH[key] = torch.zeros(int(words()), dtype=torch.int64, device=device)
-    return buf
-
-
-def _check_scratch(rc: int, name: str, key: tuple) -> None:
-    """``_check`` for a launch on cached scratch: a failed launch may leave
-    it dirty, so its entry is dropped before raising."""
-    if rc != 0:
-        _SCRATCH.pop(key, None)
-        _check(rc, name)
 
 
 # Small outputs of merge_compact_tracked and count_pairs2, by (kernel,
@@ -136,30 +82,13 @@ def _pooled(key: tuple, make):
     return pool.pop()
 
 
-def _require(t: torch.Tensor, dtype, shape=None, name="tensor") -> None:
-    if t.dtype != dtype or not t.is_contiguous() or (shape is not None and tuple(t.shape) != shape):
-        raise ValueError(f"{name}: want contiguous {dtype} {shape or ''}, got {t.dtype} {tuple(t.shape)}")
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    return False
-
-
 def bin_index(tok: torch.Tensor) -> torch.Tensor:
     """Hash bin of 16-bit tokens: (tok * 2654435761) >> 16 & 255 in
     wrapping u32 arithmetic (int64 masked before the shift)."""
     return (((tok * 2654435761) & 0xFFFFFFFF) >> 16) & (TRACK_SIDE * TRACK_SIDE - 1)
 
 
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
+def to_i32(x: torch.Tensor) -> torch.Tensor:
     """Reinterpret the low 32 bits of int64 values as signed int32 (kept in int64)."""
     x = x & 0xFFFFFFFF
     return torch.where(x >= 2**31, x - 2**32, x)
@@ -345,36 +274,36 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
         raise ValueError("merge_compact_tracked: give both cand and counts, or neither")
     if len(window) and probes is not None:
         raise ValueError("merge_compact_tracked: a window and probes are exclusive")
-    if _on_cpu(symbols, weights, *window):
+    if on_cpu(symbols, weights, *window):
         return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts, probes)
     from .build import load
 
     dev = symbols.device
     cap = symbols.shape[0]
-    _require(symbols, torch.int32, (cap,), "symbols")
-    _require(weights, torch.int32, (cap,), "weights")
+    require(symbols, torch.int32, (cap,), "symbols")
+    require(weights, torch.int32, (cap,), "weights")
     if window:
-        _require(cand, torch.int64, (W_SLOTS,), "cand")
-        _require(counts, torch.int64, (W_SLOTS,), "counts")
+        require(cand, torch.int64, (W_SLOTS,), "cand")
+        require(counts, torch.int64, (W_SLOTS,), "counts")
     if cap < 1:
         raise ValueError("merge_compact_tracked: empty stream")
     n, pair, new_id = _dev_scalar(n, dev), _dev_scalar(pair, dev), _dev_scalar(new_id, dev)
     listed = () if probes is None else probe_list(*probes, dev)
     lib = load()["merge_compact_tracked"]
-    stream = _stream(dev)
+    stream = current_stream(dev)
     key = ("merge_compact_tracked", dev.index, cap, stream)
     scratch = cached_scratch(key, dev, lambda: lib.mc_scratch_words(cap))
     arena, (n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff) = _pooled(
         ("merge_compact_tracked", dev.index, stream), lambda: merge_arenas(POOL_CALLS, dev))
     out = torch.empty(2, cap, dtype=torch.int32, device=dev)  # merged symbols, then weights
-    with _on_device(dev):
+    with on_device(dev):
         rc = lib.merge_compact_tracked(
             symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair.data_ptr(), new_id.data_ptr(),
             cand.data_ptr() if window else 0, counts.data_ptr() if window else 0,
             listed[0].data_ptr() if listed else 0, listed[1].data_ptr() if listed else 0, out.data_ptr(), arena,
             scratch.data_ptr(), stream,
         )
-    _check_scratch(rc, "merge_compact_tracked", key)
+    check_scratch(rc, "merge_compact_tracked", key)
     LAUNCHES["merge_compact_tracked" if window else EXPLICIT_PROBES if listed else PROBE_LESS] += 1
     sym2, w2 = out.unbind(0)
     if listed:
@@ -416,27 +345,27 @@ def count_pairs2(symbols, weights, n, pair1, pair2):
     Pair (p, p+1) adds ``weights[p]`` iff p < n-1, the successor lacks the
     word-start bit and neither token is 0, so pair 0 and pairs with a zero
     member count 0."""
-    if _on_cpu(symbols, weights):
+    if on_cpu(symbols, weights):
         return count_pairs2_plain(symbols, weights, n, pair1, pair2)
     from .build import load
 
     dev = symbols.device
     cap = symbols.shape[0]
-    _require(symbols, torch.int32, (cap,), "symbols")
-    _require(weights, torch.int32, (cap,), "weights")
+    require(symbols, torch.int32, (cap,), "symbols")
+    require(weights, torch.int32, (cap,), "weights")
     n, pair1, pair2 = _dev_scalar(n, dev), _dev_scalar(pair1, dev), _dev_scalar(pair2, dev)
     lib = load()["count_pairs2"]
-    stream = _stream(dev)
+    stream = current_stream(dev)
     key = ("count_pairs2", dev.index, 0, stream)
     scratch = cached_scratch(key, dev, lib.cp_scratch_words)
     out = _pooled(("count_pairs2", dev.index, stream),
                   lambda: list(torch.empty(POOL_CALLS, 2, dtype=torch.int64, device=dev).unbind(0)))
-    with _on_device(dev):
+    with on_device(dev):
         rc = lib.count_pairs2(
             symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair1.data_ptr(), pair2.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), stream,
         )
-    _check_scratch(rc, "count_pairs2", key)
+    check_scratch(rc, "count_pairs2", key)
     LAUNCHES["count_pairs2"] += 1
     return out
 
@@ -468,7 +397,7 @@ def window_post_plain(sc, cand, counts, bins_l, bins_r, log):
     dev = cand.device
     v = dict(zip(_SCALAR_ORDER, (int(x) for x in sc[:N_SCALARS].tolist())))
     probes = sc[N_SCALARS : N_SCALARS + N_PROBES]
-    pcnt = _to_i32(sc[N_SCALARS + N_PROBES :])
+    pcnt = to_i32(sc[N_SCALARS + N_PROBES :])
     pair, md, fill = v["pair"], v["merges_done"], v["fill"]
     active, has_room = v["active"] != 0, v["has_room"] != 0
     live = counts >= 0
@@ -583,7 +512,7 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     pend_pair), pair ids and next_id as unsigned values.
     """
     dev = cand.device
-    if _on_cpu(cand, counts, bins_l, bins_r, log, probes, pcnt):
+    if on_cpu(cand, counts, bins_l, bins_r, log, probes, pcnt):
         for k, x in scalars.items():
             if isinstance(x, torch.Tensor):
                 _scalar_bytes(k, x, dev)
@@ -591,24 +520,24 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
         return window_post_plain(sc, cand, counts, bins_l, bins_r, log)
     from .build import load
 
-    _require(cand, torch.int64, (W_SLOTS,), "cand")
-    _require(counts, torch.int64, (W_SLOTS,), "counts")
-    _require(bins_l, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_l")
-    _require(bins_r, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_r")
-    _require(log, torch.int64, None, "log")
-    _require(probes, torch.int64, (N_PROBES,), "probes")
-    _require(pcnt, torch.int64, (N_PROBES,), "pcnt")
+    require(cand, torch.int64, (W_SLOTS,), "cand")
+    require(counts, torch.int64, (W_SLOTS,), "counts")
+    require(bins_l, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_l")
+    require(bins_r, torch.float32, (TRACK_SIDE, TRACK_SIDE), "bins_r")
+    require(log, torch.int64, None, "log")
+    require(probes, torch.int64, (N_PROBES,), "probes")
+    require(pcnt, torch.int64, (N_PROBES,), "pcnt")
     refs, held = scalar_refs(dev, scalars)  # `held` stays alive until the launch is enqueued
     n_log = log.shape[0]
     out = torch.empty(2 * W_SLOTS + n_log + 8, dtype=torch.int64, device=dev)
     base = out.data_ptr()
-    with _on_device(dev):
+    with on_device(dev):
         rc = load()["window_post"].window_post(
-            refs, _ptr(probes), _ptr(pcnt), _ptr(cand), _ptr(counts), _ptr(bins_l),
-            _ptr(bins_r), _ptr(log), n_log, base, base + 8 * W_SLOTS, base + 16 * W_SLOTS,
-            base + 8 * (2 * W_SLOTS + n_log), _stream(dev),
+            refs, ptr(probes), ptr(pcnt), ptr(cand), ptr(counts), ptr(bins_l),
+            ptr(bins_r), ptr(log), n_log, base, base + 8 * W_SLOTS, base + 16 * W_SLOTS,
+            base + 8 * (2 * W_SLOTS + n_log), current_stream(dev),
         )
-    _check(rc, "window_post")
+    check(rc, "window_post")
     LAUNCHES["window_post"] += 1
     return out[:W_SLOTS], out[W_SLOTS : 2 * W_SLOTS], out[2 * W_SLOTS : 2 * W_SLOTS + n_log], out[-8:]
 
@@ -636,24 +565,24 @@ def _compact_launch(name: str, vals, extras):
 
     dev = vals.device
     n = vals.shape[0]
-    _require(vals, torch.int32, (n,), "vals")
+    require(vals, torch.int32, (n,), "vals")
     if len(extras) > MAX_EXTRA:
         raise ValueError(f"{name}: at most {MAX_EXTRA} extras, got {len(extras)}")
     for e in extras:
-        _require(e, torch.int32, (n,), "extra")
+        require(e, torch.int32, (n,), "extra")
     lib = load()["compact_mask"]
     out = torch.empty_like(vals)
     outs = [torch.empty_like(e) for e in extras]
     # word 0 is the total, the rest the kernel's tile counter and status words
     words = torch.empty(1 + int(lib.cm_scratch_words(n)), dtype=torch.int64, device=dev)
     ptrs = struct.Struct(f"<{len(extras)}Q")
-    with _on_device(dev):
+    with on_device(dev):
         rc = lib.compact_mask(
-            _ptr(vals), n, ptrs.pack(*[e.data_ptr() for e in extras]), ptrs.pack(*[o.data_ptr() for o in outs]),
-            len(extras), _ptr(out), words.data_ptr(), words.data_ptr() + 8, _stream(dev),
+            ptr(vals), n, ptrs.pack(*[e.data_ptr() for e in extras]), ptrs.pack(*[o.data_ptr() for o in outs]),
+            len(extras), ptr(out), words.data_ptr(), words.data_ptr() + 8, current_stream(dev),
         )
     total = words[0]
-    _check(rc, name)
+    check(rc, name)
     LAUNCHES[name] += 1
     return [out, *outs], total
 
@@ -668,7 +597,7 @@ def compact_mask(vals, extras=()):
     words); what lies past ``total`` is unspecified. ``total`` is a 0-d
     int64 tensor on the device."""
     extras = tuple(extras)
-    if _on_cpu(vals, *extras):
+    if on_cpu(vals, *extras):
         return compact_mask_plain(vals, extras)
     return _compact_launch("compact_mask", vals, extras)
 
@@ -676,7 +605,7 @@ def compact_mask(vals, extras=()):
 def compact_valid(vals):
     """``compact_mask`` without extras (the tokenizer's PAD strip): returns
     ``(compacted, total)``."""
-    if _on_cpu(vals):
+    if on_cpu(vals):
         outs, total = compact_mask_plain(vals)
     else:
         outs, total = _compact_launch("compact_valid", vals, ())
@@ -699,20 +628,20 @@ def expand_to_mask(mask, vals):
     """The inverse of ``compact_mask``: int32 ``[n]`` with ``vals[r]`` at the
     r-th set entry of the bool ``[n]`` ``mask`` and 0 elsewhere. ``vals``
     (int32) must hold at least as many entries as ``mask`` has set."""
-    if _on_cpu(mask, vals):
+    if on_cpu(mask, vals):
         return expand_to_mask_plain(mask, vals)
     from .build import load
 
     dev = mask.device
     n = mask.shape[0]
-    _require(mask, torch.bool, (n,), "mask")
-    _require(vals, torch.int32, None, "vals")
+    require(mask, torch.bool, (n,), "mask")
+    require(vals, torch.int32, None, "vals")
     lib = load()["expand_to_mask"]
-    stream = _stream(dev)
+    stream = current_stream(dev)
     scratch = cached_scratch(("expand_to_mask", dev.index, n, stream), dev, lambda: lib.em_scratch_words(n))
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    with _on_device(dev):
-        rc = lib.expand_to_mask(_ptr(mask), n, _ptr(vals), vals.numel(), _ptr(out), _ptr(scratch), stream)
-    _check(rc, "expand_to_mask")
+    with on_device(dev):
+        rc = lib.expand_to_mask(ptr(mask), n, ptr(vals), vals.numel(), ptr(out), ptr(scratch), stream)
+    check(rc, "expand_to_mask")
     LAUNCHES["expand_to_mask"] += 1
     return out

@@ -1,6 +1,6 @@
 """ctypes binding of the native ingest library (``ops/cpp/ingest.cpp``, the
-port's own copy, built with g++ by ``ops/cpp/build.py`` into
-``gpu_bpe_tpu_torch/_build/``).
+port's own copy, built with g++ by ``utils/build.py`` into
+``gpu_bpe_tpu_torch/_build/`` at first use).
 
 ``native_dedup`` is the fast path of ``make_stream(dedup=True)`` and
 ``NativeAccumulator`` that of ``StreamAccumulator``: one hash pass over the
@@ -16,10 +16,29 @@ from __future__ import annotations
 import ctypes
 import functools
 import logging
+from pathlib import Path
 
 import numpy as np
 
+from ..utils.build import Library, load
+
 logger = logging.getLogger(__name__)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+LIBRARY = Library(
+    name="ingest",
+    source=Path(__file__).resolve().parent / "cpp" / "ingest.cpp",
+    flags=("-O3", "-shared", "-fPIC", "-std=c++17"),
+    entries={
+        "ingest_dedup": (_I, [_P, _P, _I, ctypes.c_uint32, _P, _P, _I, _P]),
+        "ingest_acc_new": (_P, []),
+        "ingest_acc_add": (_I, [_P, _P, _P, _I]),
+        "ingest_acc_unique_bytes": (_I, [_P]),
+        "ingest_acc_finish": (_I, [_P, ctypes.c_uint32, _P, _P, _I, _P]),
+        "ingest_acc_free": (None, [_P]),
+    },
+)
 
 
 @functools.cache
@@ -27,30 +46,10 @@ def _raw_lib():
     """The loaded library with its entry points declared, or None when it
     does not build or load."""
     try:
-        from .cpp.build import build
-
-        lib = ctypes.CDLL(str(build()))
+        return load([LIBRARY])["ingest"]
     except Exception as e:  # noqa: BLE001 (no g++, or a failed build)
         logger.warning("native ingest unavailable (%s); using the numpy path", e)
         return None
-    lib.ingest_dedup.restype = ctypes.c_int64
-    lib.ingest_dedup.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
-    lib.ingest_acc_new.restype = ctypes.c_void_p
-    lib.ingest_acc_new.argtypes = []
-    lib.ingest_acc_add.restype = ctypes.c_int64
-    lib.ingest_acc_add.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-    lib.ingest_acc_unique_bytes.restype = ctypes.c_int64
-    lib.ingest_acc_unique_bytes.argtypes = [ctypes.c_void_p]
-    lib.ingest_acc_finish.restype = ctypes.c_int64
-    lib.ingest_acc_finish.argtypes = [
-        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
-    lib.ingest_acc_free.restype = None
-    lib.ingest_acc_free.argtypes = [ctypes.c_void_p]
-    return lib
 
 
 def _lib():

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream, _to_i32, cached_scratch
+from .build import LAUNCHES, cached_scratch, check, current_stream, on_cpu, on_device, ptr, require
+from .kernels import to_i32
 
 MAX_DEPTHS = 10  # overlay_fit.cu ND: depth slots 0..9
 MAX_CHUNK = 1 << 30  # overlay_fit.cu keeps a chunk's end in 32 bits
@@ -85,7 +86,7 @@ def overlay_fit_plain(skp, input_len, *, chunk_size: int, depths: int, base_len:
         gid = torch.where(in_group & (sflag == 1), vals[group_depth].to(torch.int64), NO_GROUP)
     else:
         gid = torch.full_like(kp, NO_GROUP)
-    return tuple(_to_i32(x).to(torch.int32) for x in (packed, key2, gid))
+    return tuple(to_i32(x).to(torch.int32) for x in (packed, key2, gid))
 
 
 def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int = 0,
@@ -108,7 +109,7 @@ def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int =
     if not 1 <= chunk_size <= MAX_CHUNK or abs(base_len) >= MAX_CHUNK:
         raise ValueError(f"overlay_fit: chunk_size {chunk_size} and |base_len| {abs(base_len)} "
                          f"must lie in [1, {MAX_CHUNK}] and [0, {MAX_CHUNK})")
-    if _on_cpu(skp):
+    if on_cpu(skp):
         return overlay_fit_plain(skp, input_len, chunk_size=chunk_size, depths=depths,
                                  base_len=base_len, max_depth=max_depth, group_depth=group_depth)
     from .build import load
@@ -117,17 +118,17 @@ def overlay_fit(skp, input_len, *, chunk_size: int, depths: int, base_len: int =
     if skp.dim() != 2:
         raise ValueError(f"overlay_fit: want [nseg, m], got {tuple(skp.shape)}")
     nseg, m = skp.shape
-    _require(skp, torch.int32, (nseg, m), "skp")
+    require(skp, torch.int32, (nseg, m), "skp")
     lib = load()["overlay_fit"]
-    stream = _stream(dev)
+    stream = current_stream(dev)
     scratch = cached_scratch(("overlay_fit", dev.index, (nseg, m), stream), dev,
                              lambda: lib.of_scratch_words(nseg, m))
     out = torch.empty(3, nseg, m, dtype=torch.int32, device=dev)  # packed, key2, gid
-    with _on_device(dev):
+    with on_device(dev):
         rc = lib.overlay_fit(
-            _ptr(skp), nseg, m, int(input_len), chunk_size, depths, base_len, max_depth, group_depth,
-            _ptr(out), _ptr(scratch), stream,
+            ptr(skp), nseg, m, int(input_len), chunk_size, depths, base_len, max_depth, group_depth,
+            ptr(out), ptr(scratch), stream,
         )
-    _check(rc, "overlay_fit")
+    check(rc, "overlay_fit")
     LAUNCHES["overlay_fit"] += 1
     return out.unbind(0)

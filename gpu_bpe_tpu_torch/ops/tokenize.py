@@ -44,7 +44,7 @@ from ..constants import INVALID_TOKEN, adaptive_chunk_size
 from ..core.encoder_ref import decode_tokens
 from ..utils.timing import span
 from .dense_kernels import DenseHash, DenseTables, _pack_bytes, dense_match
-from .kernels import _to_i32, compact_mask, compact_valid, expand_to_mask
+from .kernels import compact_mask, compact_valid, expand_to_mask, to_i32
 from .stab_kernels import NO_GROUP, overlay_fit
 from .trainer import resolve_device
 from .walk_kernels import MAX_WALK_STEP as _MAX_WALK_STEP
@@ -407,7 +407,7 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
     """int64 u32 value -> int32 bits."""
-    return _to_i32(x).to(torch.int32)
+    return to_i32(x).to(torch.int32)
 
 
 class _StabTables:

@@ -50,12 +50,12 @@ from .kernels import (
     INVALID,
     N_PROBES,
     W_SLOTS,
-    _to_i32,
     bin_index,
     compact_mask,
     count_pairs2,
     merge_compact,
     merge_compact_tracked,
+    to_i32,
     window_post,
 )
 
@@ -232,7 +232,7 @@ def _run_totals_reset(sp: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
     is_end[:, :-1] = start[:, 1:]
     csum = torch.cumsum(sw, 1)
     before = torch.cummax(torch.where(start, csum - sw, 0), 1).values
-    run = _to_i32(csum - before)
+    run = to_i32(csum - before)
     return torch.where(is_end & (sp != 0), run, 0)
 
 
@@ -261,7 +261,7 @@ def _full_recount_segmented(pair: torch.Tensor, w: torch.Tensor, cap: int):
     # as extras, as their u32 bit patterns
     prim = torch.where(flat_rt > 0, 0, -1).to(torch.int32)
     (_, sp_c, rt_c), total = compact_mask(
-        prim, (_to_i32(sp.reshape(-1)).to(torch.int32), flat_rt.to(torch.int32)),
+        prim, (to_i32(sp.reshape(-1)).to(torch.int32), flat_rt.to(torch.int32)),
     )
     with span("train.read", "seg_recount"):
         cnt = int(total)

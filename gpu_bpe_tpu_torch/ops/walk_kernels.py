@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..constants import INVALID_TOKEN
-from .kernels import LAUNCHES, _check, _on_cpu, _on_device, _ptr, _require, _stream, _to_i32
+from .build import LAUNCHES, check, current_stream, on_cpu, on_device, ptr, require
+from .kernels import to_i32
 
 MAX_WALK_STEP = 63  # longest jump of the plain walk's 64-bit emission schedule
 BLOCK_POSITIONS = 8192  # positions a block of chunk_walk.cu stages (cw_chunks_per_block)
@@ -121,13 +122,13 @@ def chunk_walk(match_id, match_len, data, input_len: int, chunk_size: int) -> to
     on the CPU); CUDA tensors launch ``chunk_walk.cu``, which takes any
     match length and chunks of up to ``MAX_CHUNK`` bytes."""
     n = match_id.shape[0]
-    _require(match_id, torch.int64, (n,), "match_id")
-    _require(match_len, torch.int64, (n,), "match_len")
-    _require(data, torch.uint8, (n,), "data")
+    require(match_id, torch.int64, (n,), "match_id")
+    require(match_len, torch.int64, (n,), "match_len")
+    require(data, torch.uint8, (n,), "data")
     if chunk_size < 1 or n % chunk_size or not 0 <= input_len <= n:
         raise ValueError(f"chunk_walk: {n} positions, chunk_size {chunk_size}, input_len {input_len}")
-    if _on_cpu(match_id, match_len, data):
-        return _to_i32(chunk_walk_plain(match_id, match_len, data, input_len, chunk_size).reshape(-1)).to(torch.int32)
+    if on_cpu(match_id, match_len, data):
+        return to_i32(chunk_walk_plain(match_id, match_len, data, input_len, chunk_size).reshape(-1)).to(torch.int32)
     if chunk_size > MAX_CHUNK:
         raise ValueError(f"chunk_walk: chunks of {chunk_size} bytes, the kernel takes {MAX_CHUNK}")
     from .build import load
@@ -135,9 +136,9 @@ def chunk_walk(match_id, match_len, data, input_len: int, chunk_size: int) -> to
     dev = data.device
     lib = load()["chunk_walk"]
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    with _on_device(dev):
-        rc = lib.chunk_walk(_ptr(match_id), _ptr(match_len), _ptr(data), n, int(input_len), int(chunk_size),
-                            _ptr(out), _stream(dev))
-    _check(rc, "chunk_walk")
+    with on_device(dev):
+        rc = lib.chunk_walk(ptr(match_id), ptr(match_len), ptr(data), n, int(input_len), int(chunk_size),
+                            ptr(out), current_stream(dev))
+    check(rc, "chunk_walk")
     LAUNCHES["chunk_walk"] += 1
     return out

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from ..constants import BATCH_MERGES, TOKEN_MASK, WORD_START_BIT
-from ..ops.kernels import INVALID, I32_MAX, _to_i32, bin_index, merge_compact_tracked
+from ..ops.kernels import INVALID, I32_MAX, bin_index, merge_compact_tracked, to_i32
 from ..ops.train_step import (
     K_CANDIDATES,
     S_CREATED,
@@ -212,7 +212,7 @@ def _full_recount(g: DataGroup, st: DistState):
         # rank's largest count outside its own selection, in one psum (the
         # reference sums both in int32)
         outside = torch.where(torch.isin(sp, loc), 0, rt).max()
-        tot = _to_i32(g.psum(torch.cat([_local_counts(su, pair, w), outside.reshape(1)])))
+        tot = to_i32(g.psum(torch.cat([_local_counts(su, pair, w), outside.reshape(1)])))
         uc = torch.where(su == INVALID, 0, tot[:-1])
         bound1 = tot[-1]
         o = torch.argsort(su, stable=True)
@@ -287,7 +287,7 @@ def _merge_and_track(g: DataGroup, st: DistState, pair, count, n_aff: int, md: i
     bins = torch.cat([bins_l.reshape(-1), bins_r.reshape(-1)])
     # one psum: the counts, then the histograms as int64 (exact integers)
     tot = g.psum(torch.cat([_local_counts(torch.cat([lst, slots]), pair2, w2m), bins.to(torch.int64)]))
-    cnt, c_lr = _to_i32(tot[:width]), _to_i32(tot[width : width + 2])
+    cnt, c_lr = to_i32(tot[:width]), to_i32(tot[width : width + 2])
     if width == N_SLOTS:
         counts2 = torch.where(live, cnt, counts)
     else:

@@ -1,1 +1,1 @@
-"""Sources of the native Unicode decoder and its build."""
+"""Sources of the native Unicode decoder, built by ``utils/build.py``."""

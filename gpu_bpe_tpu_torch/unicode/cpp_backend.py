@@ -1,6 +1,6 @@
 """ctypes binding of the native decoder library (the port's own copy of
 ``gpu_bpe_tpu/unicode/cpp_backend.py``), built from this package's ``cpp/``
-sources by ``cpp/build.py``.
+sources by ``utils/build.py``: ``LIBRARY`` declares its 97 exports.
 
 ``CppUnicodeBackend`` has the interface of ``fallback.PyUnicodeBackend``,
 the reference decoder's API, on the native tables, and adds the exports
@@ -15,183 +15,90 @@ from __future__ import annotations
 
 import ctypes as C
 import os
+from pathlib import Path
 
 import numpy as np
 
+from ..utils.build import Library, load
 from .fallback import REF_HANGUL_ENV, PyUnicodeBackend
+
+_I = C.c_int
+_U32 = C.c_uint32
+_I64 = C.c_int64
+_S = C.c_char_p
+_U8P = C.POINTER(C.c_uint8)
+_U16P = C.POINTER(C.c_uint16)
+_U32P = C.POINTER(C.c_uint32)
+_I64P = C.POINTER(C.c_int64)
+_CPP = Path(__file__).resolve().parent / "cpp"
+LIBRARY = Library(
+    name="decoder",
+    source=_CPP / "decoder.cpp",
+    flags=("-O2", "-shared", "-fPIC", "-std=c++17"),
+    headers=(_CPP / "unicode_tables.h",),
+    entries={
+        "decoder_init decoder_get_hangul_inert": (_I, []),
+        "decoder_get_unicode_version": (_S, []),
+        (
+            "decoder_get_category decoder_is_valid decoder_is_assigned decoder_is_surrogate "
+            "decoder_is_noncharacter decoder_is_private_use decoder_is_letter decoder_is_mark "
+            "decoder_is_digit decoder_is_number decoder_is_punctuation decoder_is_symbol "
+            "decoder_is_separator decoder_is_control decoder_is_format decoder_is_uppercase "
+            "decoder_is_lowercase decoder_is_titlecase decoder_is_whitespace "
+            "decoder_is_alphanumeric decoder_is_combining decoder_get_combining_class "
+            "decoder_get_script decoder_get_block decoder_is_identifier_start "
+            "decoder_is_identifier_continue decoder_is_pattern_syntax decoder_is_pattern_whitespace "
+            "decoder_is_xid_start decoder_is_xid_continue decoder_is_alphabetic decoder_is_numeric "
+            "decoder_has_confusable_mapping decoder_confusable_proto_len"
+        ): (_I, [_U32]),
+        "decoder_to_upper decoder_to_lower decoder_to_title decoder_case_fold": (_U32, [_U32]),
+        "decoder_compose": (_I64, [_U32, _U32]),
+        "decoder_is_confusable": (_I, [_U32, _U32]),
+        "decoder_is_in_block": (_I, [_U32, _I]),
+        (
+            "decoder_decompose decoder_decompose_full decoder_to_upper_full decoder_to_lower_full "
+            "decoder_to_title_full decoder_case_fold_full"
+        ): (_I, [_U32, _U32P, _I]),
+        "decoder_is_valid_utf8 decoder_is_well_formed_utf8": (_I, [_S, _I64]),
+        "decoder_utf8_char_count decoder_utf8_length": (_I64, [_S, _I64]),
+        "decoder_normalize_utf8": (_I, [_S, _I64, _I, _U8P, _I64, _I64P]),
+        "decoder_is_normalized_utf8": (_I, [_S, _I64, _I]),
+        "decoder_classify_codepoints decoder_sanitize_utf8": (_I, [_S, _I64, _U8P, _I64, _I64P]),
+        "decoder_classify_utf32": (None, [_U32P, _I64, _U8P]),
+        "decoder_pretokenize_prepare": (_I, [_S, _I64, _U8P, _I64, _I64P, _U32P, _U8P, _U32P, _I64, _I64P]),
+        "decoder_byte_word_starts": (None, [_U32P, _U8P, _I64, _U8P, _I64]),
+        "decoder_find_word_boundaries": (None, [_U32P, _U8P, _I64, _U8P]),
+        "decoder_count_graphemes decoder_count_words decoder_count_sentences decoder_utf8_encoded_length": (
+            _I64, [_U32P, _I64]),
+        "decoder_is_suspicious decoder_is_mixed_script decoder_is_well_formed": (_I, [_U32P, _I64]),
+        "decoder_case_compare decoder_check_confusables decoder_check_confusables_widened": (
+            _I, [_U32P, _I64, _U32P, _I64]),
+        "decoder_get_skeleton": (_I64, [_U32P, _I64, _U32P, _I64]),
+        "decoder_string_to_upper decoder_string_to_lower decoder_string_to_title": (None, [_U32P, _I64, _U32P]),
+        "decoder_normalize": (_I64, [_U32P, _I64, _I, _U32P, _I64]),
+        "decoder_is_normalized decoder_quick_check": (_I, [_U32P, _I64, _I]),
+        "decoder_sanitize": (_I, [_U32P, _I64, _U32P, _I64, _I64P, _I]),
+        "decoder_is_valid_utf16": (_I, [_U16P, _I64]),
+        "decoder_utf16_to_utf32": (_I64, [_U16P, _I64, _U32P, _I64]),
+        "decoder_utf32_to_utf16": (_I64, [_U32P, _I64, _U16P, _I64]),
+        "decoder_utf32_to_utf8": (_I64, [_U32P, _I64, _U8P, _I64]),
+        "decoder_utf8_to_utf16": (_I64, [_S, _I64, _U16P, _I64]),
+        "decoder_utf16_to_utf8": (_I64, [_U16P, _I64, _U8P, _I64]),
+        "decoder_utf8_to_utf32": (_I64, [_S, _I64, _U32P, _I64]),
+        "decoder_is_grapheme_boundary decoder_is_word_boundary decoder_is_sentence_boundary": (
+            _I, [_U32P, _I64, _I64]),
+        "decoder_next_grapheme decoder_next_word decoder_next_sentence": (_I64, [_U32P, _I64, _I64]),
+        "decoder_get_script_name decoder_get_block_id_name": (_S, [_I]),
+        "decoder_get_block_name": (_S, [_U32]),
+        "decoder_set_hangul_inert": (None, [_I]),
+    },
+)
 
 
 def _load():
-    from .cpp.build import build
-
-    lib = C.CDLL(str(build()))
-    lib.decoder_init.argtypes = []
-    lib.decoder_init.restype = C.c_int
-    lib.decoder_get_unicode_version.argtypes = []
-    lib.decoder_get_unicode_version.restype = C.c_char_p
-    for name in (
-        "decoder_get_category decoder_is_valid decoder_is_assigned decoder_is_surrogate "
-        "decoder_is_noncharacter decoder_is_private_use decoder_is_letter decoder_is_mark "
-        "decoder_is_digit decoder_is_number decoder_is_punctuation decoder_is_symbol "
-        "decoder_is_separator decoder_is_control decoder_is_format decoder_is_uppercase "
-        "decoder_is_lowercase decoder_is_titlecase decoder_is_whitespace "
-        "decoder_is_alphanumeric decoder_is_combining decoder_get_combining_class"
-    ).split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32]
-        fn.restype = C.c_int
-    for name in "decoder_to_upper decoder_to_lower decoder_to_title decoder_case_fold".split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32]
-        fn.restype = C.c_uint32
-    lib.decoder_compose.argtypes = [C.c_uint32, C.c_uint32]
-    lib.decoder_compose.restype = C.c_int64
-    lib.decoder_decompose.argtypes = [C.c_uint32, C.POINTER(C.c_uint32), C.c_int]
-    lib.decoder_decompose.restype = C.c_int
-    lib.decoder_decompose_full.argtypes = [C.c_uint32, C.POINTER(C.c_uint32), C.c_int]
-    lib.decoder_decompose_full.restype = C.c_int
-    lib.decoder_is_valid_utf8.argtypes = [C.c_char_p, C.c_int64]
-    lib.decoder_is_valid_utf8.restype = C.c_int
-    lib.decoder_utf8_char_count.argtypes = [C.c_char_p, C.c_int64]
-    lib.decoder_utf8_char_count.restype = C.c_int64
-    lib.decoder_normalize_utf8.argtypes = [
-        C.c_char_p, C.c_int64, C.c_int,
-        C.POINTER(C.c_uint8), C.c_int64, C.POINTER(C.c_int64),
-    ]
-    lib.decoder_normalize_utf8.restype = C.c_int
-    lib.decoder_is_normalized_utf8.argtypes = [C.c_char_p, C.c_int64, C.c_int]
-    lib.decoder_is_normalized_utf8.restype = C.c_int
-    lib.decoder_classify_codepoints.argtypes = [
-        C.c_char_p, C.c_int64, C.POINTER(C.c_uint8), C.c_int64, C.POINTER(C.c_int64),
-    ]
-    lib.decoder_classify_codepoints.restype = C.c_int
-    lib.decoder_classify_utf32.argtypes = [C.POINTER(C.c_uint32), C.c_int64, C.POINTER(C.c_uint8)]
-    lib.decoder_classify_utf32.restype = None
-    lib.decoder_pretokenize_prepare.argtypes = [
-        C.c_char_p, C.c_int64,
-        C.POINTER(C.c_uint8), C.c_int64, C.POINTER(C.c_int64),
-        C.POINTER(C.c_uint32), C.POINTER(C.c_uint8), C.POINTER(C.c_uint32),
-        C.c_int64, C.POINTER(C.c_int64),
-    ]
-    lib.decoder_pretokenize_prepare.restype = C.c_int
-    lib.decoder_byte_word_starts.argtypes = [
-        C.POINTER(C.c_uint32), C.POINTER(C.c_uint8), C.c_int64,
-        C.POINTER(C.c_uint8), C.c_int64,
-    ]
-    lib.decoder_byte_word_starts.restype = None
-    for name in "decoder_count_graphemes decoder_count_words decoder_count_sentences".split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.POINTER(C.c_uint32), C.c_int64]
-        fn.restype = C.c_int64
-    for name in (
-        "decoder_get_script decoder_get_block decoder_is_identifier_start "
-        "decoder_is_identifier_continue decoder_is_pattern_syntax "
-        "decoder_is_pattern_whitespace"
-    ).split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32]
-        fn.restype = C.c_int
-    lib.decoder_is_in_block.argtypes = [C.c_uint32, C.c_int]
-    lib.decoder_is_in_block.restype = C.c_int
-    lib.decoder_is_suspicious.argtypes = [C.POINTER(C.c_uint32), C.c_int64]
-    lib.decoder_is_suspicious.restype = C.c_int
-    lib.decoder_is_mixed_script.argtypes = [C.POINTER(C.c_uint32), C.c_int64]
-    lib.decoder_is_mixed_script.restype = C.c_int
-    for name in ("decoder_is_xid_start", "decoder_is_xid_continue"):
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32]
-        fn.restype = C.c_int
-    # extended API (full parity with the reference's 71 exports)
-    for name in (
-        "decoder_is_alphabetic decoder_is_numeric decoder_has_confusable_mapping "
-        "decoder_confusable_proto_len"
-    ).split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32]
-        fn.restype = C.c_int
-    lib.decoder_is_confusable.argtypes = [C.c_uint32, C.c_uint32]
-    lib.decoder_is_confusable.restype = C.c_int
-    u32p = C.POINTER(C.c_uint32)
-    for name in (
-        "decoder_to_upper_full decoder_to_lower_full decoder_to_title_full "
-        "decoder_case_fold_full"
-    ).split():
-        fn = getattr(lib, name)
-        fn.argtypes = [C.c_uint32, u32p, C.c_int]
-        fn.restype = C.c_int
-    lib.decoder_case_compare.argtypes = [u32p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_case_compare.restype = C.c_int
-    lib.decoder_check_confusables.argtypes = [u32p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_check_confusables.restype = C.c_int
-    lib.decoder_check_confusables_widened.argtypes = [u32p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_check_confusables_widened.restype = C.c_int
-    lib.decoder_get_skeleton.argtypes = [u32p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_get_skeleton.restype = C.c_int64
-    for name in "decoder_string_to_upper decoder_string_to_lower decoder_string_to_title".split():
-        fn = getattr(lib, name)
-        fn.argtypes = [u32p, C.c_int64, u32p]
-        fn.restype = None
-    lib.decoder_normalize.argtypes = [u32p, C.c_int64, C.c_int, u32p, C.c_int64]
-    lib.decoder_normalize.restype = C.c_int64
-    lib.decoder_is_normalized.argtypes = [u32p, C.c_int64, C.c_int]
-    lib.decoder_is_normalized.restype = C.c_int
-    lib.decoder_quick_check.argtypes = [u32p, C.c_int64, C.c_int]
-    lib.decoder_quick_check.restype = C.c_int
-    lib.decoder_sanitize_utf8.argtypes = [
-        C.c_char_p, C.c_int64, C.POINTER(C.c_uint8), C.c_int64, C.POINTER(C.c_int64)
-    ]
-    lib.decoder_sanitize_utf8.restype = C.c_int
-    lib.decoder_is_well_formed_utf8.argtypes = [C.c_char_p, C.c_int64]
-    lib.decoder_is_well_formed_utf8.restype = C.c_int
-    lib.decoder_sanitize.argtypes = [
-        u32p, C.c_int64, u32p, C.c_int64, C.POINTER(C.c_int64), C.c_int
-    ]
-    lib.decoder_sanitize.restype = C.c_int
-    lib.decoder_is_well_formed.argtypes = [u32p, C.c_int64]
-    lib.decoder_is_well_formed.restype = C.c_int
-    u16p = C.POINTER(C.c_uint16)
-    lib.decoder_is_valid_utf16.argtypes = [u16p, C.c_int64]
-    lib.decoder_is_valid_utf16.restype = C.c_int
-    lib.decoder_utf16_to_utf32.argtypes = [u16p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_utf16_to_utf32.restype = C.c_int64
-    lib.decoder_utf32_to_utf16.argtypes = [u32p, C.c_int64, u16p, C.c_int64]
-    lib.decoder_utf32_to_utf16.restype = C.c_int64
-    lib.decoder_utf32_to_utf8.argtypes = [u32p, C.c_int64, C.POINTER(C.c_uint8), C.c_int64]
-    lib.decoder_utf32_to_utf8.restype = C.c_int64
-    lib.decoder_utf8_to_utf16.argtypes = [C.c_char_p, C.c_int64, u16p, C.c_int64]
-    lib.decoder_utf8_to_utf16.restype = C.c_int64
-    lib.decoder_utf16_to_utf8.argtypes = [u16p, C.c_int64, C.POINTER(C.c_uint8), C.c_int64]
-    lib.decoder_utf16_to_utf8.restype = C.c_int64
-    lib.decoder_utf8_length.argtypes = [C.c_char_p, C.c_int64]
-    lib.decoder_utf8_length.restype = C.c_int64
-    lib.decoder_utf8_encoded_length.argtypes = [u32p, C.c_int64]
-    lib.decoder_utf8_encoded_length.restype = C.c_int64
-    lib.decoder_utf8_to_utf32.argtypes = [C.c_char_p, C.c_int64, u32p, C.c_int64]
-    lib.decoder_utf8_to_utf32.restype = C.c_int64
-    for name in (
-        "decoder_is_grapheme_boundary decoder_is_word_boundary decoder_is_sentence_boundary"
-    ).split():
-        fn = getattr(lib, name)
-        fn.argtypes = [u32p, C.c_int64, C.c_int64]
-        fn.restype = C.c_int
-    for name in "decoder_next_grapheme decoder_next_word decoder_next_sentence".split():
-        fn = getattr(lib, name)
-        fn.argtypes = [u32p, C.c_int64, C.c_int64]
-        fn.restype = C.c_int64
-    lib.decoder_find_word_boundaries.argtypes = [
-        u32p, C.POINTER(C.c_uint8), C.c_int64, C.POINTER(C.c_uint8)
-    ]
-    lib.decoder_find_word_boundaries.restype = None
-    lib.decoder_get_script_name.argtypes = [C.c_int]
-    lib.decoder_get_script_name.restype = C.c_char_p
-    lib.decoder_get_block_name.argtypes = [C.c_uint32]
-    lib.decoder_get_block_name.restype = C.c_char_p
-    lib.decoder_get_block_id_name.argtypes = [C.c_int]
-    lib.decoder_get_block_id_name.restype = C.c_char_p
-    lib.decoder_set_hangul_inert.argtypes = [C.c_int]
-    lib.decoder_set_hangul_inert.restype = None
-    lib.decoder_get_hangul_inert.argtypes = []
-    lib.decoder_get_hangul_inert.restype = C.c_int
+    """The decoder library, built if missing, its exports declared and its
+    tables initialised."""
+    lib = load([LIBRARY])["decoder"]
     lib.decoder_init()
     return lib
 

@@ -4,8 +4,7 @@ formatting.
 The JAX package's ``utils/compile_cache.py`` (JAX's persistent compilation
 cache) has no counterpart here: the port's compiled artifacts are the
 kernel and host libraries in ``gpu_bpe_tpu_torch/_build/``, built once per
-tree and named by a hash of their sources (``ops/build.py``,
-``ops/cpp/build.py``, ``unicode/cpp/build.py``).
+tree and named by a hash of their sources (``utils/build.py``).
 """
 
 from .logging import get_logger, log_progress

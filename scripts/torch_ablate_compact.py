@@ -94,6 +94,8 @@ def variant_source(src: str, change) -> str:
 
 def build_variant(build, name: str, src: str, out_dir: Path):
     """(library, ptxas register/spill lines) of one variant."""
+    from gpu_bpe_tpu_torch.utils.build import declare
+
     (out_dir / "common.cuh").write_text((build.CSRC / "common.cuh").read_text())
     cu = out_dir / f"compact_{name}.cu"
     cu.write_text(src)
@@ -103,11 +105,7 @@ def build_variant(build, name: str, src: str, out_dir: Path):
     if res.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{res.stdout}{res.stderr}")
     ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines() if "registers" in ln or "spill" in ln]
-    lib = ctypes.CDLL(str(so))
-    for fn, argtypes in build._SIGNATURES["compact_mask"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int if fn == "compact_mask" else ctypes.c_longlong
-    return lib, ptxas
+    return declare(ctypes.CDLL(str(so)), build.KERNELS["compact_mask"]), ptxas
 
 
 def launch(torch, lib, vals, extras):

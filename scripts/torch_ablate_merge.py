@@ -78,6 +78,8 @@ def variant_source(src: str, name: str, change) -> str:
 def build_variants(build, out_dir: Path) -> dict:
     """{(source, variant): (library, ptxas lines)}, one nvcc per variant,
     all started together."""
+    from gpu_bpe_tpu_torch.utils.build import declare
+
     (out_dir / "common.cuh").write_text((build.CSRC / "common.cuh").read_text())
     procs = {}
     for name, variants in VARIANTS.items():
@@ -94,10 +96,7 @@ def build_variants(build, out_dir: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name}/{var}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in build._SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = build._RESTYPES.get(fn, ctypes.c_int)
+        lib = declare(ctypes.CDLL(str(so)), build.KERNELS[name])
         libs[(name, var)] = (lib, [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
     return libs
 

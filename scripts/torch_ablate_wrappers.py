@@ -69,12 +69,12 @@ def main() -> int:
     cap = symbols.shape[0]
     m = k.merge_compact_tracked(symbols, weights, n, pair_t, new_id, cand, counts)
     slots = (torch.tensor((97 << 16) | 300, device=dev), torch.tensor((300 << 16) | 98, device=dev))
-    stream = k._stream(dev)
+    stream = build.current_stream(dev)
     mkey = ("merge_compact_tracked", dev.index, cap, stream)
     ckey = ("count_pairs2", dev.index, 0, stream)
     mlib, clib = libs["merge_compact_tracked"], libs["count_pairs2"]
-    scratch_m = k.cached_scratch(mkey, dev, lambda: mlib.mc_scratch_words(cap))
-    scratch_c = k.cached_scratch(ckey, dev, clib.cp_scratch_words)
+    scratch_m = build.cached_scratch(mkey, dev, lambda: mlib.mc_scratch_words(cap))
+    scratch_c = build.cached_scratch(ckey, dev, clib.cp_scratch_words)
     out = torch.empty(2, cap, dtype=torch.int32, device=dev)
     arena = torch.empty(k.ARENA_WORDS, dtype=torch.int64, device=dev)
     cout = torch.empty(2, dtype=torch.int64, device=dev)
@@ -90,7 +90,7 @@ def main() -> int:
             pass
 
     def on_device():
-        with k._on_device(dev):
+        with build.on_device(dev):
             pass
 
     steps = {
@@ -98,10 +98,11 @@ def main() -> int:
         "count_wrapper": lambda: k.count_pairs2(m[0], m[1], m[2], *slots),
         "merge_raw_ctypes_launch": lambda: mlib.merge_compact_tracked(*mptrs),
         "count_raw_ctypes_launch": lambda: clib.count_pairs2(*cptrs),
-        "on_cpu_4_tensors": lambda: k._on_cpu(symbols, weights, cand, counts),
-        "require_4_tensors": lambda: (k._require(symbols, torch.int32, (cap,)), k._require(weights, torch.int32, (cap,)),
-                                      k._require(cand, torch.int64, (k.W_SLOTS,)),
-                                      k._require(counts, torch.int64, (k.W_SLOTS,))),
+        "on_cpu_4_tensors": lambda: build.on_cpu(symbols, weights, cand, counts),
+        "require_4_tensors": lambda: (build.require(symbols, torch.int32, (cap,)),
+                                      build.require(weights, torch.int32, (cap,)),
+                                      build.require(cand, torch.int64, (k.W_SLOTS,)),
+                                      build.require(counts, torch.int64, (k.W_SLOTS,))),
         "dev_scalar_3": lambda: (k._dev_scalar(n, dev), k._dev_scalar(pair_t, dev), k._dev_scalar(new_id, dev)),
         "parent_scalar_3": lambda: [k._scalar(x, dev) for x in (n, pair_t, new_id)],
         "merge_outputs": lambda: (k._pooled(("ablate", 0), lambda: k.merge_arenas(k.POOL_CALLS, dev)),
@@ -115,8 +116,8 @@ def main() -> int:
             torch.empty(int(mlib.mc_scratch_words(cap)), **i64)),
         "count_empty_2": lambda: torch.empty(2, **i64),
         "parent_count_zeros_2": lambda: torch.zeros(2, **i64),
-        "raw_stream": lambda: k._stream(dev),
-        "scratch_lookup": lambda: k.cached_scratch(mkey, dev, None),
+        "raw_stream": lambda: build.current_stream(dev),
+        "scratch_lookup": lambda: build.cached_scratch(mkey, dev, None),
         "torch_cuda_device_ctx": device_ctx,
         "on_device_ctx": on_device,
     }

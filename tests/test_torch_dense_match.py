@@ -220,7 +220,7 @@ def test_dense_match_never_falls_back_off_the_cpu(monkeypatch):
     def no_compiler():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(dk, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(dk, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(build, "load", no_compiler)
     monkeypatch.setattr(dk, "dense_match_plain", None)
     before = tk.LAUNCHES["dense_match"]

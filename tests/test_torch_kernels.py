@@ -18,6 +18,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from gpu_bpe_tpu.ops import pallas_kernels as pk  # noqa: E402
 from gpu_bpe_tpu_torch.constants import BATCH_MERGES, pack_pair  # noqa: E402
+from gpu_bpe_tpu_torch.ops import build  # noqa: E402
 from gpu_bpe_tpu_torch.ops import kernels as tk  # noqa: E402
 
 BLOCK = pk.BLOCK
@@ -521,20 +522,20 @@ def test_cached_scratch_keys_and_failed_launch():
 
     keys = [("k", 0, 4096, 11), ("k", 0, 2048, 11), ("k", 0, 4096, 12), ("k", 1, 4096, 11)]
     try:
-        bufs = [tk.cached_scratch(key, cpu, words) for key in keys]
+        bufs = [build.cached_scratch(key, cpu, words) for key in keys]
         assert len(made) == 4 and len({b.data_ptr() for b in bufs}) == 4
         assert all(b.shape == (40,) and int(b.abs().sum()) == 0 for b in bufs)
-        assert tk.cached_scratch(keys[0], cpu, words) is bufs[0] and len(made) == 4
-        tk._check_scratch(0, "k", keys[0])
-        assert tk.cached_scratch(keys[0], cpu, words) is bufs[0]
+        assert build.cached_scratch(keys[0], cpu, words) is bufs[0] and len(made) == 4
+        build.check_scratch(0, "k", keys[0])
+        assert build.cached_scratch(keys[0], cpu, words) is bufs[0]
         bufs[0][3] = 7  # as a launch that failed half way might leave it
         with pytest.raises(RuntimeError, match="cudaError 700"):
-            tk._check_scratch(700, "k", keys[0])
-        fresh = tk.cached_scratch(keys[0], cpu, words)
+            build.check_scratch(700, "k", keys[0])
+        fresh = build.cached_scratch(keys[0], cpu, words)
         assert fresh is not bufs[0] and int(fresh.abs().sum()) == 0 and len(made) == 5
     finally:
         for key in keys:
-            tk._SCRATCH.pop(key, None)
+            build._SCRATCH.pop(key, None)
 
 
 @pytest.mark.parametrize("given", ["int", "0d_int64", "1elem_int64", "0d_int32"])

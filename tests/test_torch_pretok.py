@@ -2,23 +2,26 @@
 (tolerance 0: normalized bytes and word-start masks must be equal), with
 each package's native backend and each one's Python backend, on the
 fixtures of ``tests/test_pretok.py`` and ``tests/test_unicode_cpp.py``,
-invalid UTF-8, NFC-changing input and a 1 MB cut of the synthetic corpus."""
+invalid UTF-8, NFC-changing input and a 1 MB cut of the synthetic corpus;
+and the port's native-library builder (``utils/build.py``) on its two g++
+libraries: one build per tree, concurrent first builds, a failed compile."""
 
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+from jax_decoder import backend as jax_native
 
 from gpu_bpe_tpu.pretok import PreTokenizer as JaxPreTokenizer
 from gpu_bpe_tpu.pretok import find_word_boundaries as jax_boundaries
 from gpu_bpe_tpu.unicode import PyUnicodeBackend as JaxPy
-from gpu_bpe_tpu.unicode.cpp_backend import CppUnicodeBackend as JaxCpp
 from gpu_bpe_tpu_torch import unicode as tuni
+from gpu_bpe_tpu_torch.ops import native
 from gpu_bpe_tpu_torch.pretok import PreTokenizer, find_word_boundaries
-from gpu_bpe_tpu_torch.unicode import PyUnicodeBackend
-from gpu_bpe_tpu_torch.unicode.cpp import build
+from gpu_bpe_tpu_torch.unicode import PyUnicodeBackend, cpp_backend
 from gpu_bpe_tpu_torch.unicode.cpp_backend import CppUnicodeBackend
+from gpu_bpe_tpu_torch.utils import build
 
 TEXTS = [
     # tests/test_pretok.py
@@ -40,7 +43,7 @@ INVALID = [b"ok \xff\xfe bytes", b"\xc3", b"abc \xe2\x82 def", b"\x80\x80 x", b"
 @pytest.fixture(scope="module")
 def pairs():
     """(port, JAX) pre-tokenizers per backend."""
-    return {"cpp": (PreTokenizer(CppUnicodeBackend()), JaxPreTokenizer(JaxCpp())),
+    return {"cpp": (PreTokenizer(CppUnicodeBackend()), JaxPreTokenizer(jax_native())),
             "python": (PreTokenizer(PyUnicodeBackend()), JaxPreTokenizer(JaxPy()))}
 
 
@@ -87,19 +90,36 @@ def test_backend_is_native_and_built_once():
     """With g++ present the default backend is the native one, built into
     the package's ``_build/`` (not the JAX package's library), once."""
     assert tuni.backend_name() == "cpp-decoder"
-    path = build.build()
-    assert path.parent.name == "_build" and path.name.startswith("libdecoder-") and path.exists()
+    path = build.build([cpp_backend.LIBRARY])["decoder"]
+    assert path.parent == build.BUILD_DIR and path.name.startswith("libdecoder-") and path.exists()
     mtime = path.stat().st_mtime_ns
-    assert build.build() == path and path.stat().st_mtime_ns == mtime
+    assert build.build([cpp_backend.LIBRARY])["decoder"] == path and path.stat().st_mtime_ns == mtime
 
 
-def test_concurrent_first_builds(tmp_path):
-    """Three processes building into an empty directory at once: each gets
-    the library, and no temporary file is left behind."""
-    code = ("import sys; from gpu_bpe_tpu_torch.unicode.cpp import build; from pathlib import Path; "
-            "build.BUILD_DIR = Path(sys.argv[1]); print(build.build())")
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)], stdout=subprocess.PIPE, text=True)
+@pytest.mark.parametrize("module", ["gpu_bpe_tpu_torch.unicode.cpp_backend", "gpu_bpe_tpu_torch.ops.native"])
+def test_concurrent_first_builds(tmp_path, module):
+    """Three processes building one g++ library into an empty directory at
+    once: each gets the library, and no temporary file is left behind."""
+    code = ("import importlib, sys; from pathlib import Path; from gpu_bpe_tpu_torch.utils import build; "
+            "build.BUILD_DIR = Path(sys.argv[1]); lib = importlib.import_module(sys.argv[2]).LIBRARY; "
+            "print(build.build([lib])[lib.name])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path), module], stdout=subprocess.PIPE, text=True)
              for _ in range(3)]
     outs = {p.communicate(timeout=300)[0].strip() for p in procs}
     assert all(p.returncode == 0 for p in procs) and len(outs) == 1
-    assert {f.name for f in tmp_path.iterdir()} == {"libdecoder.lock", outs.pop().rsplit("/", 1)[1]}
+    name = outs.pop().rsplit("/", 1)[1]
+    assert {f.name for f in tmp_path.iterdir()} == {name.split("-")[0] + ".lock", name}
+
+
+def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
+    """A compile that fails raises with the compiler's output and leaves no
+    temporary file behind; a library built beside it in the same call
+    lands."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    broken = tmp_path / "broken.cpp"
+    broken.write_text('#error "deliberately broken source"\n')
+    libs = [build.Library("broken", broken, native.LIBRARY.flags, {}), native.LIBRARY]
+    with pytest.raises(RuntimeError, match=r"broken\.cpp \(rc 1\):\n(.|\n)*deliberately broken source"):
+        build.build(libs)
+    assert {f.name for f in (tmp_path / "out").iterdir()} == {
+        "libbroken.lock", "libingest.lock", native.LIBRARY.path().name}

@@ -57,9 +57,11 @@ def _dedup_cases():
 
 def test_native_library_builds():
     assert native.native_available()
-    from gpu_bpe_tpu_torch.ops.cpp.build import BUILD_DIR, lib_path
+    from gpu_bpe_tpu_torch.utils.build import BUILD_DIR
 
-    assert lib_path().parent == BUILD_DIR and lib_path().exists()
+    path = native.LIBRARY.path()
+    assert path.parent == BUILD_DIR and path.name.startswith("libingest-") and path.exists()
+    assert native._raw_lib()._name == str(path)
 
 
 @pytest.mark.parametrize("case", sorted(_dedup_cases()))

@@ -19,6 +19,10 @@ one package refuses the other must refuse with the same exception type).
   ``api.train`` in each mode;
 * ``ops.apply_merge_device`` and ``ops.find_best_pair`` against JAX's on
   seeded streams, and the package's top-level names.
+
+The JAX native backend comes from this process's own build of the JAX
+decoder (``jax_decoder.py``), never from ``gpu_bpe_tpu/unicode/cpp/``,
+whose library other test processes may be rebuilding in place.
 """
 
 import ctypes
@@ -34,6 +38,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax_decoder import backend as jax_native
+from jax_decoder import library as jax_native_library
 from test_unicode_cpp import NFC_SAMPLES
 
 import gpu_bpe_tpu
@@ -188,7 +194,7 @@ def _args(kind: str, native: bool):
     if kind == "cp_pair":
         return PAIRS
     if kind == "cp_block":
-        get_block = JaxCpp().get_block
+        get_block = jax_native().get_block
         return [(cp, get_block(cp)) for cp in CPS[::5]] + [(cp, 7) for cp in CPS[::11]]
     if kind == "id":
         return [(i,) for i in range(-2, 420)]
@@ -248,7 +254,18 @@ def _outcome(fn, args):
 
 @pytest.fixture(scope="module")
 def backends():
-    return {"native": (CppUnicodeBackend(), JaxCpp()), "python": (PyUnicodeBackend(), JaxPy())}
+    return {"native": (CppUnicodeBackend(), jax_native()), "python": (PyUnicodeBackend(), JaxPy())}
+
+
+def test_jax_native_backend_is_a_private_copy(backends):
+    """The JAX native backend the tests compare with is loaded from this
+    process's own build, never from the JAX package's tree, where other
+    test processes may be rebuilding ``libdecoder.so`` in place."""
+    jax_tree = Path(gpu_bpe_tpu.__file__).resolve().parent
+    for lib in (backends["native"][1]._lib, jax_native()._lib):
+        path = Path(lib._name).resolve()
+        assert path == jax_native_library().resolve() and path.exists()
+        assert not path.is_relative_to(jax_tree), path
 
 
 JAX_METHODS = sorted(n for n in dir(JaxCpp) if not n.startswith("_"))
@@ -604,7 +621,7 @@ def test_ref_hangul_environment_variable():
     assert p.returncode == 0 and p.stdout.strip() == "ok", p.stdout + p.stderr
 
 
-def test_ref_hangul_training_equals_jax(tmp_path):
+def test_ref_hangul_training_equals_jax(tmp_path, monkeypatch):
     """api.train(device="cpu") on a 1 MB cut of the decomposed-jamo corpus
     equals JAX api.train in each mode, and so does api.train_files on the
     cut in four chunks; the two modes differ."""
@@ -614,7 +631,8 @@ def test_ref_hangul_training_equals_jax(tmp_path):
     from gpu_bpe_tpu_torch import api
 
     corpus = synth_hangul_corpus(1 << 20, seed=0)
-    port, ref = tun.get_backend(), jun.get_backend()
+    port, ref = tun.get_backend(), jax_native()
+    monkeypatch.setattr(jun, "_BACKEND", ref)  # what JAX api.train's pre-tokenizer takes
     lists = {}
     try:
         for on in (False, True):

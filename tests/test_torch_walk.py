@@ -196,7 +196,7 @@ def test_chunk_walk_never_falls_back_off_the_cpu(monkeypatch):
     def no_compiler():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(wk, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(wk, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(build, "load", no_compiler)
     monkeypatch.setattr(wk, "chunk_walk_plain", None)
     before = tk.LAUNCHES["chunk_walk"]
