@@ -71,7 +71,8 @@ SYNTH_VOCAB = 65536
 DIST_MERGES = 64
 RUNS = 5
 DEVICE_PASSES = 5  # chained passes behind a device MB/s
-TRAIN_KERNELS = ("merge_compact_tracked", "count_pairs2", "window_post")
+GATED = "merge_compact_tracked/gated"  # ops/kernels.py GATED: the default loop's merge
+TRAIN_KERNELS = (GATED, "count_pairs2", "window_post")  # what the default training loop launches
 TOKENIZE_KERNELS = ("compact_valid", "compact_mask", "expand_to_mask", "overlay_fit", "dense_match", "chunk_walk")
 PROBE_LESS = "merge_compact_tracked/probe-less"  # ops/kernels.py PROBE_LESS
 BENCH_KERNELS = (*TRAIN_KERNELS, PROBE_LESS, *TOKENIZE_KERNELS)

@@ -23,19 +23,27 @@ Phases, each printing one JSON line:
    call; its times beside the window-mode call's); count_pairs2 on pairs
    whose token Z sits only at the first and the last live position;
    window_post's scalars as the main path passes them (bool flags, 0-d
-   int64 views, one-element slices) and as Python ints. Bitwise comparison
+   int64 views, one-element slices) and as Python ints; the gated mode
+   (the default loop's merge) on every merge case with a live gate, a
+   stopped one (count < 2, and ids past 16 bits) and a full window, and on
+   the real first merge and those variants against the torch glue the
+   loop ran before it (``_gate``, ``_sampled_pairs``): its words, then
+   count_pairs2 and window_post reading them in place against the plain
+   chain. Bitwise comparison
    (tolerance 0: both versions sum integers exactly and round the
    histograms to f32 once). Each line has the kernel's median time over
    CUDA events around one wrapper call (ms), its host time per call
    enqueued back to back (host_ms), its device time and device operations
    per call from torch.profiler (device_ms, device_ops; window_post and
    count_pairs2 must be exactly one kernel, merge_compact_tracked at most
-   two), the plain version's time, the bytes it must move and the bound
-   at 3.35 TB/s;
+   two in either mode), the plain version's time, the bytes it must move
+   and the bound at 3.35 TB/s;
 4. main path: Trainer(device="cuda") on bench.py's 16 MB synthetic Zipfian
    corpus (seed 0), 1024 merges (vocab 256 -> 1280), byte-heuristic word
    starts; merges/s, recounts, final n and capacity, and every kernel's
-   launch count on this run (each must be > 0);
+   launch count on this run: one gated merge and one count_pairs2 a merge,
+   one window_post a merge and one more a wide merge, no window-mode,
+   probe-less or explicit-probe launch;
 5. the same trainer with force_recount=True for the first 256 merges: its
    merge list must equal phase 4's first 256 merges;
 6. phase 4's corpus cut to 1 MB, 128 merges, on cuda and on cpu: the merge
@@ -258,6 +266,7 @@ import numpy as np
 
 # the bench's helpers; the scripts and tests import them from here too
 from bench_torch import (  # noqa: F401
+    GATED,
     PROBE_LESS,
     TOKENIZE_KERNELS,
     TRAIN_KERNELS,
@@ -302,6 +311,13 @@ KERNELS = {
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # ops/kernels.py EXPLICIT_PROBES
 KERNELS[PROBE_LESS] = KERNELS["merge_compact_tracked"]
 KERNELS[EXPLICIT_PROBES] = KERNELS["merge_compact_tracked"]
+KERNELS[GATED] = KERNELS["merge_compact_tracked"]
+# (label, pending count, fill, new id or None for the case's own) of the gated calls
+GATE_STATES = (("live", 9, 132, None), ("stopped", 1, 132, None), ("full_window", 9, 255, None),
+               ("ids_out", 9, 132, 0x10000))
+# the real first merge's state as it is, then changed to stop or to fill the window
+GATE_TWEAKS = (("real", {}), ("stopped", {"pend_count": 1}), ("full_window", {"fill": 255}),
+               ("ids_out", {"next_id": 0x10000}))
 CORPUS64_BYTES = 64 << 20  # the certificate run's corpus (its first 16 MB are CORPUS_BYTES')
 CERT64 = "docs/artifacts/certificate_validation.json"
 FILES_MERGES = 8192  # the recorded 64 MB certificate run
@@ -591,7 +607,7 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     dead = (np.full(256, 0xFFFFFFFF, np.int64), np.full(256, -1, np.int64))
     cases += [(f"probe-less/{c[0]}", *c[1:6], *dead) for c in (cases[0], cases[6], real)]
 
-    err = {k: 0.0 for k in TRAIN_KERNELS}
+    err = {k: 0.0 for k in ("merge_compact_tracked", *TRAIN_KERNELS)}
     details = []
     for name, sym, w, n, pair, new_id, cand, counts in cases:
         args = (torch.from_numpy(sym.astype(np.int32)).to(dev), torch.from_numpy(w).to(dev),
@@ -604,6 +620,11 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         want = kernels.merge_compact_tracked_plain(*args)
         e = max_abs_diff(got, want)
         err["merge_compact_tracked"] = max(err["merge_compact_tracked"], e)
+        for label, count, fill, nid in GATE_STATES:
+            gargs = args if nid is None else (*args[:4], torch.tensor(nid, device=dev), *args[5:])
+            ge = gated_diff(torch, kernels, gargs, count, fill, dev)
+            err[GATED] = max(err[GATED], ge)
+            details.append({"case": f"gated/{label}/{name}", "max_abs_err": ge})
         sym2, w2, n2 = got[0], got[1], got[2]
         slots = (torch.tensor((int(got[5][1]) << 16) | (new_id & 0xFFFF), device=dev),
                  torch.tensor(((new_id & 0xFFFF) << 16) | int(got[5][3]), device=dev))
@@ -679,6 +700,16 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         sc = kernels.pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
         want = kernels.window_post_plain(sc, cand, counts, bl, br, log)
         err["window_post"] = max(err["window_post"], max_abs_diff(got, want))
+    # the gated merge on the real case and its variants, against the glue
+    # the loop ran before it, then count_pairs2 and window_post reading the
+    # gated words in place
+    for label, tweak in GATE_TWEAKS:
+        gst = replace_state(ts, st)
+        for f, v in tweak.items():
+            setattr(gst, f, torch.tensor(v, device=dev))
+        e = gated_chain_diff(torch, kernels, ts, gst)
+        err[GATED] = max(err[GATED], e)
+        details.append({"case": f"gated chain/{label}/real", "max_abs_err": e})
     for k, e in err.items():
         if e != 0.0:
             raise AssertionError(f"{k} disagrees with its plain version: max_abs_err {e}\n{details}")
@@ -697,11 +728,17 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
     slots = (torch.tensor(1, device=dev), torch.tensor((256 << 16) | 97, device=dev))
     cand, counts, bl, br, log, probes, pcnt, scalars = wp_inputs[0]
     sc = kernels.pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
+    gate = (rs.pend_count, rs.fill)
     timing = {
         "merge_compact_tracked": (
             lambda: kernels.merge_compact_tracked(*targs),
             lambda: kernels.merge_compact_tracked_plain(*targs),
             8 * n + 8 * CAP + 2 * 256 * 8 + 2 * 256 * 4 + 4 * 64 * 8,
+        ),
+        GATED: (
+            lambda: kernels.merge_compact_tracked(*targs, gate=gate),
+            lambda: kernels.merge_compact_tracked_plain(*targs, gate=gate),
+            8 * n + 8 * CAP + 2 * 256 * 8 + 2 * 256 * 4 + 4 * 64 * 8 + 10 * 8,
         ),
         "count_pairs2": (
             lambda: kernels.count_pairs2(m[0], m[1], m[2], *slots),
@@ -722,21 +759,76 @@ def kernel_phase(torch, kernels, ts, real_stream, dev):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows[k] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
                        max_abs_err=err[k], **prof)
-        emit({"phase": "kernel", "name": k, "cases": len(cases) if k != "window_post" else len(wp_inputs),
+        n_cases = {"window_post": len(wp_inputs), GATED: len(GATE_STATES) * len(cases) + len(GATE_TWEAKS)}.get(
+            k, len(cases))
+        emit({"phase": "kernel", "name": k, "cases": n_cases,
               "max_abs_err": err[k], "tolerance": 0, "ms": ms, "plain_ms": plain_ms, **prof,
               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes"})
     emit({"phase": "kernel_cases", "cases": details})
     if round(rows["window_post"]["device_ops"]) != 1:
         raise AssertionError(f"window_post put {rows['window_post']['device_op_names']} on the card "
                              "per call, want exactly one kernel")
-    if round(rows["merge_compact_tracked"]["device_ops"]) > 2:
-        raise AssertionError(f"merge_compact_tracked put {rows['merge_compact_tracked']['device_op_names']} "
-                             "on the card per call, want at most two kernels")
+    for k in ("merge_compact_tracked", GATED):
+        if round(rows[k]["device_ops"]) > 2:
+            raise AssertionError(f"{k} put {rows[k]['device_op_names']} on the card per call, "
+                                 "want at most two kernels")
     if round(rows["count_pairs2"]["device_ops"]) != 1:
         raise AssertionError(f"count_pairs2 put {rows['count_pairs2']['device_op_names']} on the card "
                              "per call, want exactly one kernel")
     rows[PROBE_LESS] = probe_less_phase(torch, kernels, real_stream, real[4], real[6], real[7], dev)
     return rows, real
+
+
+def gated_diff(torch, kernels, args, count, fill, dev) -> float:
+    """The gated merge (``args`` as the window mode's, ``pair`` the pending
+    winner, the gate's count and fill given) against its plain version: the
+    nine window outputs, the gate words and n_new, n_aff of ``host`` (its
+    ``sout`` is the caller's, unwritten by the merge)."""
+    gate = (torch.tensor(count, device=dev), torch.tensor(fill, device=dev))
+    got = kernels.merge_compact_tracked(*args, gate=gate)
+    torch.cuda.synchronize()
+    want = kernels.merge_compact_tracked_plain(*args, gate=gate)
+    w = kernels.GATE_WORDS
+    return max_abs_diff([*got[:9], *got[9][:w], got[9].host[8:]], [*want[:9], *want[9][:w], want[9].host[8:]])
+
+
+def gated_chain_diff(torch, kernels, ts, st) -> float:
+    """One certified merge of ``st`` both ways: the gated merge, then
+    count_pairs2 and window_post (into the arena's ``sout``) reading its
+    words in place, against the torch glue of ``_gate`` and
+    ``_sampled_pairs`` around the plain versions. Compares the merge's
+    outputs, each gate word with the glue's value, the counts, and
+    window_post's outputs and ``host``."""
+    dev = st.n.device
+    got = kernels.merge_compact_tracked(st.symbols, st.weights, st.n, st.pend_pair, st.next_id, st.cand,
+                                        st.cand_counts, gate=(st.pend_count, st.fill))
+    g = got[9]
+    c_got = kernels.count_pairs2(got[0], got[1], got[2], g.l_slot, g.r_slot)
+    c_l, c_r = c_got.unbind(0)
+    gs = dict(pair=g.pair, count=st.pend_count, next_id=st.next_id, theta=st.theta, ub_new=st.ub_new, fill=st.fill,
+              merges_done=st.merges_done, active=g.active, early_stop=st.early_stop, use_probes=g.use_probes,
+              n_aff=got[8], c_l=c_l, c_r=c_r, l_ok=g.l_ok, r_ok=g.r_ok, l_tok=g.l_tok, r_tok=g.r_tok,
+              has_room=g.has_room)
+    wp = kernels.window_post(st.cand, st.cand_counts, got[3], got[4], st.merge_log, probes=got[7], pcnt=got[6],
+                             sout=g.sout, **gs)
+    torch.cuda.synchronize()  # a fault in the kernels surfaces here
+
+    active, pair_eff, has_room = ts._gate(st)
+    m = kernels.merge_compact_tracked_plain(st.symbols, st.weights, st.n, pair_eff, st.next_id, st.cand,
+                                            st.cand_counts)
+    sp = ts._sampled_pairs(st, m[5], has_room)
+    glue = [pair_eff, active, has_room, m[8] <= kernels.N_PROBES, sp["l_ok"], sp["r_ok"], sp["l_tok"],
+            sp["r_tok"], sp["l_slot"], sp["r_slot"]]
+    c_want = kernels.count_pairs2_plain(m[0], m[1], m[2], sp["l_slot"], sp["r_slot"])
+    ws = dict(pair=pair_eff, count=st.pend_count, next_id=st.next_id, theta=st.theta, ub_new=st.ub_new,
+              fill=st.fill, merges_done=st.merges_done, active=active, early_stop=st.early_stop,
+              use_probes=m[8] <= kernels.N_PROBES, n_aff=m[8], c_l=c_want[0], c_r=c_want[1], has_room=has_room,
+              **{k: sp[k] for k in ("l_ok", "r_ok", "l_tok", "r_tok")})
+    sc = kernels.pack_scalars(dev, probes=m[7], pcnt=m[6], **ws)
+    want = kernels.window_post_plain(sc, st.cand, st.cand_counts, m[3], m[4], st.merge_log)
+    host = torch.cat([want[3], m[2].reshape(1), m[8].reshape(1)])
+    return max_abs_diff([*got[:9], *g[: kernels.GATE_WORDS], c_got, *wp, g.host],
+                        [*m, *(x.to(torch.int64) for x in glue), c_want, *want, host])
 
 
 def probe_less_phase(torch, kernels, padded, pair, cand, counts, dev) -> dict:
@@ -1340,6 +1432,8 @@ def api_phases(torch, corpus: bytes, vocabs: dict, launches: dict, rows: dict) -
     if not cut_equal or len(cut["cuda"][1].merges) != SMALL_MERGES or min(run_launches.values()) <= 0:
         raise AssertionError("api.train: the 1 MB cut differs between card, CPU path and reference, "
                              f"or a training kernel never launched: {run_launches}")
+    if run_launches[GATED] != len(res11.merges):
+        raise AssertionError(f"api.train: {run_launches[GATED]} gated merges for {len(res11.merges)} merges")
     for k in TRAIN_KERNELS:
         launches[k] += run_launches[k]
 
@@ -1915,7 +2009,7 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
     kernels.LAUNCHES.clear()
     ts.HOST_READS.clear()
     res, _ = train(torch, Trainer, stream, MERGES, "cuda", multi_merge=True)
-    run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+    run = {k: kernels.LAUNCHES[k] for k in ("merge_compact_tracked", *TRAIN_KERNELS)}
     same = res.merges == main_res.merges and res.merge_counts == main_res.merge_counts
     emit({"phase": "multi_merge", "merges": len(res.merges), "seconds": res.training_time_s,
           "merges_per_s": len(res.merges) / res.training_time_s, "duals": res.duals, "recounts": res.recounts,
@@ -1923,8 +2017,9 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
           "neutralised_merges": run["merge_compact_tracked"] - len(res.merges), "equal_to_main_path": same})
     if not same or res.duals <= 0:
         raise AssertionError(f"multi-merge run: equal to phase 4 {same}, duals {res.duals}")
-    if run["merge_compact_tracked"] <= 0 or run["count_pairs2"] <= 0 or run["window_post"]:
-        raise AssertionError(f"the multi-merge path must launch the merge and count_pairs2, not window_post: {run}")
+    if run["merge_compact_tracked"] <= 0 or run["count_pairs2"] <= 0 or run["window_post"] or run[GATED]:
+        raise AssertionError(f"the multi-merge path must launch the window-mode merge and count_pairs2, not "
+                             f"window_post or the gated merge: {run}")
     for k in ("merge_compact_tracked", "count_pairs2"):
         launches[k] += run[k]
 
@@ -1950,7 +2045,7 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
     kernels.LAUNCHES.clear()
     ts.RECOUNTS.clear()
     seg, _ = train(torch, Trainer, api._byte_stream(corpus), MULTI_SEG_MERGES, "cuda", multi_merge=True)
-    seg_run = {k: kernels.LAUNCHES[k] for k in (*TRAIN_KERNELS, "compact_mask")}
+    seg_run = {k: kernels.LAUNCHES[k] for k in ("merge_compact_tracked", *TRAIN_KERNELS, "compact_mask")}
     tiers = dict(ts.RECOUNTS)
     same_seg = (seg.merges == nodedup_res.merges[:MULTI_SEG_MERGES]
                 and seg.merge_counts == nodedup_res.merge_counts[:MULTI_SEG_MERGES])
@@ -1961,7 +2056,7 @@ def multi_merge_phase(torch, corpus: bytes, stream, main_res, nodedup_res, launc
           "nodedup_recounts_by_tier": tiers, "nodedup_launches": seg_run, "nodedup_equal": same_seg})
     if not same_truth or not same_seg:
         raise AssertionError(f"multi-merge: force_recount equal {same_truth}, 2^25 no-dedup equal {same_seg}")
-    if not any(k.startswith("seg") for k in tiers) or seg_run["compact_mask"] <= 0:
+    if not any(k.startswith("seg") for k in tiers) or seg_run["compact_mask"] <= 0 or seg_run[GATED]:
         raise AssertionError(f"the segmented recount did not run on the multi-merge path: {tiers} {seg_run}")
     for k in ("merge_compact_tracked", "count_pairs2", "compact_mask"):
         launches[k] += seg_run[k]
@@ -2004,13 +2099,14 @@ def force_recount_env_phase(torch, corpus: bytes, api_res, launches: dict) -> No
             _, r = api.train(corpus, api.TrainConfig(vocab_size=256 + FORCE_MERGES, show_progress=False))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        run = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+        run = {k: kernels.LAUNCHES[k] for k in ("merge_compact_tracked", *TRAIN_KERNELS)}
         checks = {"equal_to_api_train": r.merges == want_m and r.merge_counts == want_c,
                   "recount_per_merge": r.recounts == len(r.merges) == FORCE_MERGES, "no_duals": r.duals == 0}
         emit({"phase": "force_recount_env", "loop": label, "bytes": len(corpus), "merges": len(r.merges),
               "recounts": r.recounts, "duals": r.duals, "seconds": secs, "training_seconds": r.training_time_s,
               "merges_per_s": len(r.merges) / r.training_time_s, "launches": run, **checks})
-        if not all(checks.values()) or run["merge_compact_tracked"] <= 0:
+        mode, other = (GATED, "merge_compact_tracked") if label == "default" else ("merge_compact_tracked", GATED)
+        if not all(checks.values()) or run[mode] <= 0 or run[other]:
             raise AssertionError(f"GPU_BPE_TPU_FORCE_RECOUNT=1 ({label}): {checks}, launches {run}")
         for k, v in run.items():
             launches[k] += v
@@ -2460,8 +2556,11 @@ def main() -> int:
 
     # ── phase 4: the main path, launch counts from this run only ──
     kernels.LAUNCHES.clear()
+    ts.HOST_READS.clear()
     res, events = train(torch, Trainer, stream, MERGES, "cuda")
     launches = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS}
+    other_modes = {k: kernels.LAUNCHES[k] for k in ("merge_compact_tracked", PROBE_LESS, EXPLICIT_PROBES)}
+    wide = ts.HOST_READS["wide"]
     cap = int(padded.symbols.shape[0])
     for ev in events:  # replay the trainer's shrink ladder
         while cap > 2048 and ev["symbolCount"] + 32 <= cap // 2:
@@ -2469,7 +2568,7 @@ def main() -> int:
     main = {"phase": "main_path", "merges": len(res.merges), "seconds": res.training_time_s,
             "merges_per_s": len(res.merges) / res.training_time_s, "recounts": res.recounts,
             "final_n": events[-1]["symbolCount"], "final_capacity": cap, "launches": launches,
-            "vocab_size": res.vocab_size}
+            "other_merge_modes": other_modes, "wide_merges": wide, "vocab_size": res.vocab_size}
     emit(main)
     if len(res.merges) != MERGES or res.vocab_size != 256 + MERGES:
         raise AssertionError(f"main path made {len(res.merges)} merges, want {MERGES}")
@@ -2477,6 +2576,12 @@ def main() -> int:
         raise AssertionError("main path merge list is malformed")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if (launches[GATED] != len(res.merges) or launches["count_pairs2"] != len(res.merges)
+            or launches["window_post"] != len(res.merges) + wide or any(other_modes.values())):
+        raise AssertionError(f"the main path must launch one gated merge, count and window_post a merge "
+                             f"(and window_post again after each of {wide} wide merges), and no other "
+                             f"merge mode: {launches}, {other_modes}")
+    launches["merge_compact_tracked"] = 0
 
     # ── phase 5: ground truth, a recount before every merge ──
     truth, _ = train(torch, Trainer, stream, FORCE_MERGES, "cuda", force_recount=True)

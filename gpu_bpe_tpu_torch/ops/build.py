@@ -51,7 +51,7 @@ _B = ctypes.c_char_p  # a host block of packed addresses (bytes), read by the en
 # each library's entry points, {names: (restype, argtypes)} (see the .cu files)
 KERNELS = {
     "merge_compact_tracked": {
-        "merge_compact_tracked": (_R, [_P, _P, _I] + [_P] * 11),
+        "merge_compact_tracked": (_R, [_P, _P, _I] + [_P] * 13),
         "mc_scratch_words": (_I, [_I]),
         "mc_arena_words": (_I, []),
     },

@@ -16,6 +16,22 @@
 // probe-less mode of the data-parallel trainer, parallel/dist_train.py)
 // the set-up is skipped: tile 0 only records that nothing is probed.
 //
+// Gated mode (the window mode of the default training loop's certified
+// merge, ops/train_step.py): the pair is the state's pending winner, and
+// the call also takes the pending count and the window's fill by pointer.
+// Every block of A derives the gate itself: the merge is active when the
+// count is at least 2 and new_id still fits in 16 bits, and a stopped merge
+// runs as the no-op pair 0; the window has room for the two sampled created
+// pairs when fill <= W_SLOTS - 2 and the merge is active. Tile 0's block
+// writes the effective pair and both flags to the arena, and B reads the
+// pair from there. B's last block, once the samples are known, writes the
+// words the merge's count_pairs2 and window_post launches read in place:
+// each sampled pair's flag (room, weight > 0, token != 0), its token (the
+// 17-bit sentinel 0x10000 when not sampled, which matches no 16-bit token),
+// its pair id for the count (sentinel pair 1 when not sampled) and whether
+// the probe counts are used (n_aff <= N_PROBES). So the loop computes no
+// scalar between the three launches.
+//
 // samp: per side, the heaviest created pair's weight and, among the pairs
 // of that weight, the smallest token over the whole stream. That is the
 // function the data-parallel trainer needs: the JAX package's own
@@ -54,7 +70,8 @@
 //      zeroes its own slots at or past n. In window mode the block that
 //      draws tile 0 also computes the affected window slots, the probe
 //      list, n_aff and the effective probe count (0 with no window; the
-//      caller's list and count, clamped to [0, N_PROBES], in explicit mode).
+//      caller's list and count, clamped to [0, N_PROBES], in explicit mode),
+//      and, gated, the effective pair and the two gate flags.
 //   B. track: one pass over adjacent pairs of the compacted output (in L2
 //      right after A; all of a thread's 16-byte loads issued first),
 //      folding the left/right created-pair histograms (integer atomics in
@@ -62,8 +79,9 @@
 //      created pair per side (a running max of (weight << 32) |
 //      (0xFFFF - tok) per thread, then per warp) and the probe counts (the
 //      probe list as a small hash table in shared memory); each block then
-//      adds its sums into the global accumulators. The last block, found by a ticket counter, turns the
-//      bins into f32 once, writes the samples and the probe counts and
+//      adds its sums into the global accumulators. The last block, found
+//      by a ticket counter, turns the bins into f32 once, writes the
+//      samples, the probe counts and, gated, the sampled pairs' words, and
 //      leaves the scratch (accumulators, tile counter, ticket, status
 //      words) zeroed for the next call, so no memset is needed.
 //
@@ -99,13 +117,25 @@ constexpr int SC_TICKET = SC_NPE + 2;         // B's finished-block counter
 constexpr int SC_STATUS = SC_NPE + 8;         // [ntiles] A's tile status words
 
 // output arena (int64 words), mirrored by ARENA_* in ops/kernels.py
-constexpr int AR_NNEW = 0;
-constexpr int AR_BINS = 1;                  // [2 * NBINS] f32 = NBINS words
+constexpr int AR_BINS = 0;                  // [2 * NBINS] f32 = NBINS words
 constexpr int AR_SAMP = AR_BINS + NBINS;    // [4]
 constexpr int AR_PCNT = AR_SAMP + 4;        // [N_PROBES]
 constexpr int AR_PROBES = AR_PCNT + N_PROBES;  // [N_PROBES]
-constexpr int AR_NAFF = AR_PROBES + N_PROBES;
+constexpr int AR_GATE = AR_PROBES + N_PROBES;  // [G_WORDS] the gated mode's words, in enum Gate's order
+constexpr int G_WORDS = 10;
+constexpr int AR_SOUT = AR_GATE + G_WORDS;  // [8] left to the caller (window_post's outputs in the gated loop)
+constexpr int AR_NNEW = AR_SOUT + 8;
+constexpr int AR_NAFF = AR_NNEW + 1;
 constexpr int AR_WORDS = AR_NAFF + 1;
+enum Gate { G_PAIR, G_ACTIVE, G_HAS_ROOM, G_USE_PROBES, G_L_OK, G_R_OK, G_L_TOK, G_R_TOK, G_L_SLOT, G_R_SLOT };
+static_assert(G_R_SLOT + 1 == G_WORDS, "gate words shared with ops/kernels.py");
+constexpr long long NO_EXCL = 0x10000;  // token of an unsampled pair: matches no 16-bit token
+
+// the gate of the gated mode: the pending count is at least 2 and the new
+// id still fits in 16 bits
+__device__ __forceinline__ bool gate_active(const long long* count, const long long* new_id) {
+    return *count >= 2 && *new_id <= (long long)TOKEN_MASK;
+}
 
 __device__ __forceinline__ long long ntiles_of(long long cap) { return (cap + TILE_N - 1) / TILE_N; }
 
@@ -146,7 +176,8 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long x) {
 __global__ void __launch_bounds__(THREADS, 3)
 merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long long cap, const long long* n_p,
             const long long* pair_p, const long long* new_id_p, const long long* cand, const long long* counts,
-            const long long* probe_words, const long long* probe_count, int* __restrict__ out_sym,
+            const long long* probe_words, const long long* probe_count, const long long* gate_count,
+            const long long* gate_fill, int* __restrict__ out_sym,
             int* __restrict__ out_w, long long* arena, long long* scratch) {
     __shared__ __align__(16) uint32_t s_sym[HALO + TILE_N + HALO];  // the tile and its halo; then the staged run
     __shared__ uint16_t stage_pos[TILE_N];
@@ -160,7 +191,8 @@ merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long lo
 
     if (t == 0) s_tile = (long long)atomicAdd(&words[SC_NEXT], 1ull);
     const long long n = min(*n_p, cap);
-    const uint32_t pair = as_u32(*pair_p);
+    const bool active = gate_count == nullptr || gate_active(gate_count, new_id_p);
+    const uint32_t pair = active ? as_u32(*pair_p) : 0u;  // a stopped gated merge runs as pair 0
     const uint32_t a = pair >> 16, b = pair & TOKEN_MASK;
     const bool noop = pair == 0u;  // pair 0 merges nothing
     __syncthreads();
@@ -306,13 +338,19 @@ merge_tiles(const uint32_t* __restrict__ sym, const int* __restrict__ w, long lo
         if (t == 0) {
             scratch[SC_NPE] = npe;
             arena[AR_NAFF] = naff;
+            if (gate_count != nullptr) {
+                long long* g = arena + AR_GATE;
+                g[G_PAIR] = (long long)pair;
+                g[G_ACTIVE] = active;
+                g[G_HAS_ROOM] = active && *gate_fill <= W_SLOTS - 2;
+            }
         }
     }
 }
 
 __global__ void __launch_bounds__(THREADS)
 track(const int* __restrict__ out_sym, const int* __restrict__ out_w, long long cap, const long long* pair_p,
-      const long long* new_id_p, bool any_pair, long long* arena, long long* scratch) {
+      const long long* new_id_p, bool any_pair, bool gated, long long* arena, long long* scratch) {
     __shared__ Split s_bins[2 * NBINS];
     __shared__ Split s_pcnt[N_PROBES];
     __shared__ uint32_t s_key[PTAB];  // probe pair
@@ -448,13 +486,32 @@ track(const int* __restrict__ out_sym, const int* __restrict__ out_w, long long 
     if (t == 0) {
         const unsigned long long pl = s_samp[0];
         const unsigned long long pr = s_samp[1];
-        long long* samp = arena + AR_SAMP;
         // weight -1 when no block saw created-pair mass, 0 when only the
         // other side did (the Pallas kernel's sample-state semantics)
-        samp[0] = pl ? (long long)(pl >> 32) : (pr ? 0 : -1);
-        samp[1] = pl ? (long long)(TOKEN_MASK - (uint32_t)(pl & 0xFFFFFFFFull)) : 0;
-        samp[2] = pr ? (long long)(pr >> 32) : (pl ? 0 : -1);
-        samp[3] = pr ? (long long)(TOKEN_MASK - (uint32_t)(pr & 0xFFFFFFFFull)) : 0;
+        const long long s0 = pl ? (long long)(pl >> 32) : (pr ? 0 : -1);
+        const long long s1 = pl ? (long long)(TOKEN_MASK - (uint32_t)(pl & 0xFFFFFFFFull)) : 0;
+        const long long s2 = pr ? (long long)(pr >> 32) : (pl ? 0 : -1);
+        const long long s3 = pr ? (long long)(TOKEN_MASK - (uint32_t)(pr & 0xFFFFFFFFull)) : 0;
+        long long* samp = arena + AR_SAMP;
+        samp[0] = s0;
+        samp[1] = s1;
+        samp[2] = s2;
+        samp[3] = s3;
+        if (gated) {  // the sampled created pairs of the gated merge (A wrote has_room)
+            long long* g = arena + AR_GATE;
+            const long long z16 = *new_id_p & TOKEN_MASK;
+            const bool room = g[G_HAS_ROOM] != 0;
+            const bool l_ok = room && s0 > 0 && s1 != 0;  // a pair with token 0 is never counted
+            const bool r_ok = room && s2 > 0 && s3 != 0;
+            const long long l_tok = l_ok ? s1 : NO_EXCL, r_tok = r_ok ? s3 : NO_EXCL;
+            g[G_USE_PROBES] = arena[AR_NAFF] <= N_PROBES;
+            g[G_L_OK] = l_ok;
+            g[G_R_OK] = r_ok;
+            g[G_L_TOK] = l_tok;
+            g[G_R_TOK] = r_tok;
+            g[G_L_SLOT] = l_ok ? (l_tok << 16) | z16 : 1;
+            g[G_R_SLOT] = r_ok ? (z16 << 16) | r_tok : 1;
+        }
         words[SC_NEXT] = 0;
         words[SC_TICKET] = 0;
     }
@@ -470,25 +527,30 @@ extern "C" long long mc_scratch_words(long long cap) { return SC_STATUS + (cap +
 extern "C" long long mc_arena_words() { return AR_WORDS; }
 
 // out: [2, cap] int32 (merged symbols, then weights); arena: mc_arena_words()
-// int64 words (n_new, bins as 2 x NBINS f32, samp[4], pcnt, probes, n_aff).
-// cand and counts are the W_SLOTS-slot window; probe_words (N_PROBES pairs)
-// and probe_count an explicit probe list; all four null for the probe-less
-// mode (then pcnt is zero and probes is left unwritten). A window and a
-// probe list are exclusive.
+// int64 words (bins as 2 x NBINS f32, samp[4], pcnt, probes, the gate
+// words, 8 words for the caller, n_new, n_aff). cand and counts are the
+// W_SLOTS-slot window; probe_words (N_PROBES pairs) and probe_count an
+// explicit probe list; all four null for the probe-less mode (then pcnt is
+// zero and probes is left unwritten). A window and a probe list are
+// exclusive. gate_count and gate_fill (both or neither, with a window) make
+// the call gated: pair is then the pending winner, gate_count its count.
 extern "C" int merge_compact_tracked(const int* sym, const int* w, long long cap, const long long* n,
                                      const long long* pair, const long long* new_id,
                                      const long long* cand, const long long* counts,
-                                     const long long* probe_words, const long long* probe_count, int* out,
+                                     const long long* probe_words, const long long* probe_count,
+                                     const long long* gate_count, const long long* gate_fill, int* out,
                                      long long* arena, long long* scratch, void* stream) {
     if (cand != nullptr && probe_words != nullptr) return (int)cudaErrorInvalidValue;
+    const bool gated = gate_count != nullptr;
+    if (gated != (gate_fill != nullptr) || (gated && cand == nullptr)) return (int)cudaErrorInvalidValue;
     if (cap < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const long long ntiles = (cap + TILE_N - 1) / TILE_N;
     const long long ntrack = cap > 1 ? (cap - 1 + TRACK_N - 1) / TRACK_N : 1;
     merge_tiles<<<(unsigned)ntiles, THREADS, 0, s>>>(reinterpret_cast<const uint32_t*>(sym), w, cap, n, pair,
-                                                       new_id, cand, counts, probe_words, probe_count, out,
-                                                       out + cap, arena, scratch);
-    track<<<(unsigned)ntrack, THREADS, 0, s>>>(out, out + cap, cap, pair, new_id, probe_words != nullptr, arena,
-                                               scratch);
+                                                       new_id, cand, counts, probe_words, probe_count,
+                                                       gate_count, gate_fill, out, out + cap, arena, scratch);
+    track<<<(unsigned)ntrack, THREADS, 0, s>>>(out, out + cap, cap, gated ? arena + AR_GATE + G_PAIR : pair, new_id,
+                                               probe_words != nullptr, gated, arena, scratch);
     return (int)cudaGetLastError();
 }

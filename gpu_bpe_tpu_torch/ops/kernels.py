@@ -33,6 +33,8 @@ meaningful when its weight is > 0.
 from __future__ import annotations
 
 import struct
+from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +50,7 @@ I32_MAX = 2**31 - 1
 
 PROBE_LESS = "merge_compact_tracked/probe-less"  # LAUNCHES key of the no-window mode
 EXPLICIT_PROBES = "merge_compact_tracked/explicit-probes"  # LAUNCHES key of the explicit-probe mode
+GATED = "merge_compact_tracked/gated"  # LAUNCHES key of the gated window mode
 
 
 def _scalar(x, device) -> torch.Tensor:
@@ -119,9 +122,77 @@ def probe_list(words, count, device) -> tuple[torch.Tensor, torch.Tensor]:
     return words.contiguous(), _dev_scalar(count, device)
 
 
-def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None):
+class Gated(NamedTuple):
+    """What the gated mode of ``merge_compact_tracked`` writes beyond the
+    window mode, as views of its output arena: 0-d int64 words, then two
+    vectors.
+
+    * ``pair``, ``active``, ``has_room``: the gate of the train step's
+      ``_gate`` (the effective pair, 0 for a stopped merge; flags 0/1);
+    * ``use_probes``: ``n_aff <= N_PROBES`` (0/1);
+    * ``l_ok``, ``r_ok``, ``l_tok``, ``r_tok``, ``l_slot``, ``r_slot``: the
+      train step's ``_sampled_pairs``, flags 0/1;
+    * ``sout``: int64 ``[8]``, left for ``window_post(..., sout=)``, and
+      ``sout_words``, its eight words as 0-d views;
+    * ``host``: int64 ``[10]`` = ``sout``, n_new, n_aff: what the loop
+      reads back after the merge, in one copy."""
+
+    pair: torch.Tensor
+    active: torch.Tensor
+    has_room: torch.Tensor
+    use_probes: torch.Tensor
+    l_ok: torch.Tensor
+    r_ok: torch.Tensor
+    l_tok: torch.Tensor
+    r_tok: torch.Tensor
+    l_slot: torch.Tensor
+    r_slot: torch.Tensor
+    sout: torch.Tensor
+    sout_words: tuple
+    host: torch.Tensor
+
+
+GATE_WORDS = 10  # the 0-d words, in merge_compact_tracked.cu's enum Gate order
+SOUT_WORDS = 8  # window_post's sout
+
+
+def gated_views(tail: torch.Tensor) -> list[Gated]:
+    """The ``Gated`` of each row of an int64 ``[k, GATE_WORDS + SOUT_WORDS +
+    2]`` arena tail: the gate words, ``sout``, n_new and n_aff."""
+    words = [tail[:, i].unbind(0) for i in range(GATE_WORDS)]
+    sout = tail[:, GATE_WORDS : GATE_WORDS + SOUT_WORDS].unbind(0)
+    sout_words = zip(*(tail[:, GATE_WORDS + i].unbind(0) for i in range(SOUT_WORDS)))
+    host = tail[:, GATE_WORDS:].unbind(0)
+    return [Gated(*w, so, sw, h) for *w, so, sw, h in zip(*words, sout, sout_words, host)]
+
+
+def _gated_plain(symbols, weights, n, pair, new_id, cand, counts, count, fill):
+    """The gated mode's plain version: the train step's own ``_gate`` and
+    ``_sampled_pairs`` around the window-mode plain merge, the words laid
+    out as in the arena (n_new and n_aff are views of ``host``)."""
+    from .train_step import _gate, _sampled_pairs
+
+    dev = symbols.device
+    st = SimpleNamespace(pend_pair=_scalar(pair, dev), pend_count=_scalar(count, dev),
+                         next_id=_scalar(new_id, dev), fill=_scalar(fill, dev))
+    active, pair_eff, has_room = _gate(st)
+    out = merge_compact_tracked_plain(symbols, weights, n, pair_eff, new_id, cand, counts)
+    sp = _sampled_pairs(st, out[5], has_room)
+    tail = torch.zeros(1, GATE_WORDS + SOUT_WORDS + 2, dtype=torch.int64, device=dev)
+    words = (pair_eff, active, has_room, out[8] <= N_PROBES, sp["l_ok"], sp["r_ok"], sp["l_tok"], sp["r_tok"],
+             sp["l_slot"], sp["r_slot"])
+    tail[0, :GATE_WORDS] = torch.stack([x.to(torch.int64) for x in words])
+    tail[0, -2:] = torch.stack([out[2], out[8]])
+    (g,) = gated_views(tail)
+    return (*out[:2], g.host[-2], *out[3:8], g.host[-1], g)
+
+
+def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None, gate=None):
     """Plain PyTorch version of ``merge_compact_tracked`` (same outputs: the
-    9-tuple with a window, the 7-tuple with ``probes``, else the 6-tuple)."""
+    10-tuple gated, the 9-tuple with a window, the 7-tuple with ``probes``,
+    else the 6-tuple)."""
+    if gate is not None:
+        return _gated_plain(symbols, weights, n, pair, new_id, cand, counts, *gate)
     dev = symbols.device
     cap = symbols.shape[0]
     n, pair, new_id = (_scalar(x, dev) for x in (n, pair, new_id))
@@ -191,44 +262,57 @@ def merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand=None, co
     return sym2, w2, n_new_t, bins_l, bins_r, samp, pcnt, probes, n_aff.to(torch.int64)
 
 
-# merge_compact_tracked.cu's output arena, in int64 words: n_new, the left
-# and right bins as 2 x 256 f32, samp[4], pcnt, probes, n_aff
-# (mc_arena_words() in the library)
-ARENA_NNEW = 0
-ARENA_BINS = 1
+# merge_compact_tracked.cu's output arena, in int64 words: the left and
+# right bins as 2 x 256 f32, samp[4], pcnt, probes, the gated mode's words,
+# sout (for window_post), n_new, n_aff (mc_arena_words() in the library);
+# the last ten words are the gated loop's host read
+ARENA_BINS = 0
 ARENA_SAMP = ARENA_BINS + TRACK_SIDE * TRACK_SIDE  # 2 x 256 f32 fill 256 words
 ARENA_PCNT = ARENA_SAMP + 4
 ARENA_PROBES = ARENA_PCNT + N_PROBES
-ARENA_NAFF = ARENA_PROBES + N_PROBES
+ARENA_GATE = ARENA_PROBES + N_PROBES
+ARENA_SOUT = ARENA_GATE + GATE_WORDS
+ARENA_NNEW = ARENA_SOUT + SOUT_WORDS
+ARENA_NAFF = ARENA_NNEW + 1
 ARENA_WORDS = ARENA_NAFF + 1
-_ARENA_SPLIT = (ARENA_BINS, ARENA_SAMP - ARENA_BINS, 4, N_PROBES, N_PROBES, 1)
+_ARENA_SPLIT = (ARENA_SAMP - ARENA_BINS, 4, N_PROBES, N_PROBES, ARENA_NNEW - ARENA_GATE, 1, 1)
 
 
-def merge_arenas(count: int, device) -> list:
+def merge_arenas(count: int, device, gated: bool = False) -> list:
     """``count`` output arenas of ``merge_compact_tracked`` in one int64
     ``[count, ARENA_WORDS]`` allocation, each as ``(address, (n_new,
     bins_l, bins_r, samp, pcnt, probes, n_aff))``: the arena's device
     address and its small outputs as views at the ``ARENA_*`` offsets, with
-    the plain version's shapes (a few view operations for all of them)."""
+    the plain version's shapes (a few view operations for all of them);
+    ``gated`` appends each arena's ``Gated`` to its views."""
     bulk = torch.empty(count, ARENA_WORDS, dtype=torch.int64, device=device)
-    n_new, bins, samp, pcnt, probes, n_aff = bulk.split(_ARENA_SPLIT, dim=1)
+    bins, samp, pcnt, probes, _, n_new, n_aff = bulk.split(_ARENA_SPLIT, dim=1)
     bins = bins.view(torch.float32).view(count, 2, TRACK_SIDE, TRACK_SIDE)
-    views = zip(n_new.squeeze(1).unbind(0), bins[:, 0].unbind(0), bins[:, 1].unbind(0), samp.unbind(0),
-                pcnt.unbind(0), probes.unbind(0), n_aff.squeeze(1).unbind(0))
+    views = [n_new.squeeze(1).unbind(0), bins[:, 0].unbind(0), bins[:, 1].unbind(0), samp.unbind(0),
+             pcnt.unbind(0), probes.unbind(0), n_aff.squeeze(1).unbind(0)]
+    if gated:
+        views.append(gated_views(bulk[:, ARENA_GATE:]))
     base, row = bulk.data_ptr(), 8 * ARENA_WORDS
-    return [(base + i * row, v) for i, v in enumerate(views)]
+    return [(base + i * row, v) for i, v in enumerate(zip(*views))]
 
 
-def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None):
+def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=None, probes=None, gate=None):
     """One merge ``pair`` -> ``new_id`` with stable compaction, created-pair
     tracking and, in window and explicit-probe modes, probe counts.
 
     ``symbols``/``weights`` are int32 ``[cap]``, live in ``[0, n)``; what
-    lies past ``n`` is never matched. Three modes:
+    lies past ``n`` is never matched. Four modes:
 
     * window: ``cand``/``counts``, the int64 ``[W_SLOTS]`` candidate
       window; the kernel derives the probe list from it. Returns ``(sym2,
       w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff)``;
+    * gated: a window and ``gate=(count, fill)``, the default training
+      loop's certified merge: ``pair`` is the pending winner, ``count`` its
+      count and ``fill`` the window's next free scratch slot (0-d int64
+      tensors, or ints). The kernel applies the train step's gate itself
+      (a merge with count < 2 or ``new_id`` past 16 bits runs as the no-op
+      pair 0) and writes the sampled pairs' words. Returns the window
+      mode's nine outputs, then a ``Gated``;
     * explicit probes: ``probes=(words, count)``, ``words`` ``N_PROBES``
       packed pairs (int64 holding their u32 values; a tensor or a
       sequence) and ``count`` (0..N_PROBES, an int or a 0-d tensor) its
@@ -238,7 +322,8 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
       the kernel reads no window and skips the probe set-up). Returns the
       first six.
 
-    A window and ``probes`` are exclusive. The outputs:
+    A window and ``probes`` are exclusive, and ``gate`` needs a window. The
+    outputs:
 
     * ``sym2``/``w2``: the merged, compacted stream, zero past ``n_new``;
       a site becomes ``new_id | (sym & WS_BIT)``, the overlap-collapse
@@ -265,17 +350,19 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
 
     On the card the small outputs are views of an allocation shared by
     ``POOL_CALLS`` calls (``merge_arenas``), each call's its own. Window-mode
-    launches count under ``merge_compact_tracked`` in ``LAUNCHES``,
-    probe-less ones under ``PROBE_LESS`` and explicit-probe ones under
-    ``EXPLICIT_PROBES``.
+    launches count under ``merge_compact_tracked`` in ``LAUNCHES``, gated
+    ones under ``GATED``, probe-less ones under ``PROBE_LESS`` and
+    explicit-probe ones under ``EXPLICIT_PROBES``.
     """
     window = () if cand is None and counts is None else (cand, counts)
     if len(window) and (cand is None or counts is None):
         raise ValueError("merge_compact_tracked: give both cand and counts, or neither")
     if len(window) and probes is not None:
         raise ValueError("merge_compact_tracked: a window and probes are exclusive")
+    if gate is not None and not window:
+        raise ValueError("merge_compact_tracked: the gated mode needs a window")
     if on_cpu(symbols, weights, *window):
-        return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts, probes)
+        return merge_compact_tracked_plain(symbols, weights, n, pair, new_id, cand, counts, probes, gate)
     from .build import load
 
     dev = symbols.device
@@ -289,23 +376,28 @@ def merge_compact_tracked(symbols, weights, n, pair, new_id, cand=None, counts=N
         raise ValueError("merge_compact_tracked: empty stream")
     n, pair, new_id = _dev_scalar(n, dev), _dev_scalar(pair, dev), _dev_scalar(new_id, dev)
     listed = () if probes is None else probe_list(*probes, dev)
+    gated = () if gate is None else tuple(_dev_scalar(x, dev) for x in gate)
     lib = load()["merge_compact_tracked"]
     stream = current_stream(dev)
     key = ("merge_compact_tracked", dev.index, cap, stream)
     scratch = cached_scratch(key, dev, lambda: lib.mc_scratch_words(cap))
-    arena, (n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff) = _pooled(
-        ("merge_compact_tracked", dev.index, stream), lambda: merge_arenas(POOL_CALLS, dev))
+    mode = GATED if gated else "merge_compact_tracked" if window else EXPLICIT_PROBES if listed else PROBE_LESS
+    arena, (n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff, *g) = _pooled(
+        ("merge_compact_tracked", dev.index, stream, bool(gated)), lambda: merge_arenas(POOL_CALLS, dev, bool(gated)))
     out = torch.empty(2, cap, dtype=torch.int32, device=dev)  # merged symbols, then weights
     with on_device(dev):
         rc = lib.merge_compact_tracked(
             symbols.data_ptr(), weights.data_ptr(), cap, n.data_ptr(), pair.data_ptr(), new_id.data_ptr(),
             cand.data_ptr() if window else 0, counts.data_ptr() if window else 0,
-            listed[0].data_ptr() if listed else 0, listed[1].data_ptr() if listed else 0, out.data_ptr(), arena,
+            listed[0].data_ptr() if listed else 0, listed[1].data_ptr() if listed else 0,
+            gated[0].data_ptr() if gated else 0, gated[1].data_ptr() if gated else 0, out.data_ptr(), arena,
             scratch.data_ptr(), stream,
         )
     check_scratch(rc, "merge_compact_tracked", key)
-    LAUNCHES["merge_compact_tracked" if window else EXPLICIT_PROBES if listed else PROBE_LESS] += 1
+    LAUNCHES[mode] += 1
     sym2, w2 = out.unbind(0)
+    if gated:
+        return sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes_out, n_aff, g[0]
     if listed:
         return sym2, w2, n_new, bins_l, bins_r, samp, pcnt
     if not window:
@@ -498,7 +590,7 @@ def scalar_refs(device, scalars: dict) -> tuple[bytes, torch.Tensor | None]:
     return _REFS.pack(*ptrs, *sizes), held
 
 
-def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
+def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, sout=None, **scalars):
     """Post-merge window update (counterpart of the Pallas ``window_post``).
 
     ``log`` is the int64 merge log, flat ``[BATCH_MERGES * 3]``; ``probes``
@@ -509,7 +601,9 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     kernel reads each tensor in place: one launch, nothing else. Returns
     ``(cand2, counts2, log2, sout)`` with ``sout`` int64 ``[8]`` =
     (merges_done2, fill2, early2, ub_new2, pend_count, pend_cert, next_id2,
-    pend_pair), pair ids and next_id as unsigned values.
+    pend_pair), pair ids and next_id as unsigned values. Given ``sout``
+    (int64 ``[8]``, contiguous, on the window's device: the gated merge's
+    ``Gated.sout``), the call writes it there and returns it.
     """
     dev = cand.device
     if on_cpu(cand, counts, bins_l, bins_r, log, probes, pcnt):
@@ -517,7 +611,11 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
             if isinstance(x, torch.Tensor):
                 _scalar_bytes(k, x, dev)
         sc = pack_scalars(dev, probes=probes, pcnt=pcnt, **scalars)
-        return window_post_plain(sc, cand, counts, bins_l, bins_r, log)
+        out = window_post_plain(sc, cand, counts, bins_l, bins_r, log)
+        if sout is None:
+            return out
+        require(sout, torch.int64, (SOUT_WORDS,), "sout")
+        return (*out[:3], sout.copy_(out[3]))
     from .build import load
 
     require(cand, torch.int64, (W_SLOTS,), "cand")
@@ -527,19 +625,25 @@ def window_post(cand, counts, bins_l, bins_r, log, *, probes, pcnt, **scalars):
     require(log, torch.int64, None, "log")
     require(probes, torch.int64, (N_PROBES,), "probes")
     require(pcnt, torch.int64, (N_PROBES,), "pcnt")
+    if sout is not None:
+        require(sout, torch.int64, (SOUT_WORDS,), "sout")
+        if sout.device != dev:
+            raise ValueError(f"window_post: sout on {sout.device}, the window on {dev}")
     refs, held = scalar_refs(dev, scalars)  # `held` stays alive until the launch is enqueued
     n_log = log.shape[0]
-    out = torch.empty(2 * W_SLOTS + n_log + 8, dtype=torch.int64, device=dev)
+    out = torch.empty(2 * W_SLOTS + n_log + (0 if sout is not None else SOUT_WORDS), dtype=torch.int64, device=dev)
     base = out.data_ptr()
+    if sout is None:
+        sout = out[-SOUT_WORDS:]
     with on_device(dev):
         rc = load()["window_post"].window_post(
             refs, ptr(probes), ptr(pcnt), ptr(cand), ptr(counts), ptr(bins_l),
             ptr(bins_r), ptr(log), n_log, base, base + 8 * W_SLOTS, base + 16 * W_SLOTS,
-            base + 8 * (2 * W_SLOTS + n_log), current_stream(dev),
+            sout.data_ptr(), current_stream(dev),
         )
     check(rc, "window_post")
     LAUNCHES["window_post"] += 1
-    return out[:W_SLOTS], out[W_SLOTS : 2 * W_SLOTS], out[2 * W_SLOTS : 2 * W_SLOTS + n_log], out[-8:]
+    return out[:W_SLOTS], out[W_SLOTS : 2 * W_SLOTS], out[2 * W_SLOTS : 2 * W_SLOTS + n_log], sout
 
 
 # ───────────────────────── compact_mask / compact_valid ──────────────────────

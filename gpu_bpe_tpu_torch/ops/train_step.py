@@ -13,14 +13,16 @@ below capacity 2^22, the two-level segmented recount (``compact_mask`` on
 the per-segment run summaries) from there on. The merge list is bitwise
 equal to recounting before every merge (``force_recount=True``).
 
-Each certified merge launches the three kernels of ``ops/kernels.py``:
-``merge_compact_tracked`` (merge, compaction, created-pair tracking, probe
-counts), ``count_pairs2`` (exact counts of the two sampled created pairs)
-and ``window_post`` (window upkeep, next winner, certificate). Between them
-everything stays on the device; the Python loop reads one small vector per
-merge to decide whether to go on (a second read only in the rare merge that
-affects more than ``N_PROBES`` window slots), and a segmented recount reads
-its summary count once to pick its tier.
+Each certified merge launches the three kernels of ``ops/kernels.py`` and
+nothing else: ``merge_compact_tracked`` in its gated mode (the stop gate,
+merge, compaction, created-pair tracking, probe counts, and the two sampled
+created pairs' flags, tokens and slots), ``count_pairs2`` (exact counts of
+those two pairs) and ``window_post`` (window upkeep, next winner,
+certificate). Each reads the scalars the one before wrote in place, so no
+torch op runs between them; the Python loop reads one small vector per
+merge to decide whether to go on (one copy; a second only in the rare merge
+that affects more than ``N_PROBES`` window slots), and a segmented recount
+reads its summary count once to pick its tier.
 
 With ``multi_merge=True`` (the reference's ``GPU_BPE_TPU_MULTI``) the batch
 runs the classic iteration ``_one_merge`` instead: the winner, the second
@@ -408,51 +410,52 @@ def _sampled_pairs(st: TrainState, samp: torch.Tensor, has_room: torch.Tensor) -
 
 
 def _one_merge_fused_certified(st: TrainState, force_recount: bool = False):
-    """One merge over the already-certified pending winner.
+    """One merge over the already-certified pending winner: the gated mode
+    of ``merge_compact_tracked`` (which applies ``_gate`` and writes what
+    ``_sampled_pairs`` computes), ``count_pairs2`` and ``window_post``, each
+    reading the words of the one before in place, then one host read.
 
     Returns ``(state, host)`` where ``host`` is the one small vector read
     back per merge, as Python ints: (merges_done, fill, early_stop, ub_new,
     pend_count, pend_cert, next_id, pend_pair, n, n_aff)."""
-    active, pair_eff, has_room = _gate(st)
-    sym2, w2, n_new, bins_l, bins_r, samp, pcnt, probes, n_aff = merge_compact_tracked(
-        st.symbols, st.weights, st.n, pair_eff, st.next_id, st.cand, st.cand_counts,
+    sym2, w2, n_new, bins_l, bins_r, _samp, pcnt, probes, n_aff, g = merge_compact_tracked(
+        st.symbols, st.weights, st.n, st.pend_pair, st.next_id, st.cand, st.cand_counts,
+        gate=(st.pend_count, st.fill),
     )
-    sampled = _sampled_pairs(st, samp, has_room)
-    l_slot, r_slot = sampled.pop("l_slot"), sampled.pop("r_slot")
-    cnt2 = count_pairs2(sym2, w2, n_new, l_slot, r_slot)
+    c_l, c_r = count_pairs2(sym2, w2, n_new, g.l_slot, g.r_slot).unbind(0)
     scalars = dict(
-        pair=pair_eff, count=st.pend_count, next_id=st.next_id, theta=st.theta,
-        ub_new=st.ub_new, fill=st.fill, merges_done=st.merges_done, active=active,
-        early_stop=st.early_stop, use_probes=n_aff <= N_PROBES, n_aff=n_aff,
-        c_l=cnt2[0], c_r=cnt2[1], has_room=has_room, **sampled,
+        pair=g.pair, count=st.pend_count, next_id=st.next_id, theta=st.theta,
+        ub_new=st.ub_new, fill=st.fill, merges_done=st.merges_done, active=g.active,
+        early_stop=st.early_stop, use_probes=g.use_probes, n_aff=n_aff, c_l=c_l, c_r=c_r,
+        l_ok=g.l_ok, r_ok=g.r_ok, l_tok=g.l_tok, r_tok=g.r_tok, has_room=g.has_room,
     )
-    cand2, counts3, log2, sout = window_post(
-        st.cand, st.cand_counts, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
+    cand2, counts3, log2, _ = window_post(
+        st.cand, st.cand_counts, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, sout=g.sout, **scalars,
     )
     with span("train.read", "merge"):
-        host = torch.cat([sout, n_new.reshape(1), n_aff.reshape(1)]).tolist()
+        host = g.host.tolist()  # sout, n_new, n_aff: one copy
     HOST_READS["merge"] += 1
     if host[9] > N_PROBES:
         # rare wide merge: nothing was probed; recount the window densely
         # and redo the window update with those counts
         counts_sel, c_l, c_r = _post_counts(
-            st.cand, st.cand_counts, pair_eff, l_slot, r_slot, sym2, w2, n_new,
+            st.cand, st.cand_counts, g.pair, g.l_slot, g.r_slot, sym2, w2, n_new,
         )
         scalars.update(c_l=c_l, c_r=c_r)
-        cand2, counts3, log2, sout = window_post(
-            st.cand, counts_sel, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, **scalars,
+        cand2, counts3, log2, _ = window_post(
+            st.cand, counts_sel, bins_l, bins_r, st.merge_log, probes=probes, pcnt=pcnt, sout=g.sout, **scalars,
         )
         with span("train.read", "wide"):
-            host[:8] = sout.tolist()
+            host = g.host.tolist()
         HOST_READS["wide"] += 1
-    pend_cert = sout[5]
+    md2, fill2, early2, ub_new2, pend_count, pend_cert, next_id2, pend_pair = g.sout_words
     if force_recount:  # ground truth: never carry a certificate
         pend_cert = torch.zeros_like(pend_cert)
         host[5] = 0
     st = replace(
-        st, symbols=sym2, weights=w2, n=n_new, next_id=sout[6], early_stop=sout[2],
-        merges_done=sout[0], merge_log=log2, cand=cand2, cand_counts=counts3,
-        ub_new=sout[3], fill=sout[1], pend_pair=sout[7], pend_count=sout[4], pend_cert=pend_cert,
+        st, symbols=sym2, weights=w2, n=n_new, next_id=next_id2, early_stop=early2,
+        merges_done=md2, merge_log=log2, cand=cand2, cand_counts=counts3,
+        ub_new=ub_new2, fill=fill2, pend_pair=pend_pair, pend_count=pend_count, pend_cert=pend_cert,
     )
     return st, host
 

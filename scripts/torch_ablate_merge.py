@@ -136,7 +136,7 @@ def main() -> int:
             def run():
                 out = torch.empty(2, cap, dtype=torch.int32, device=dev)
                 arena = torch.empty(kernels.ARENA_WORDS, dtype=torch.int64, device=dev)
-                ptrs = [x.data_ptr() for x in margs[:2]] + [cap] + [x.data_ptr() for x in margs[2:]] + [0, 0]
+                ptrs = [x.data_ptr() for x in margs[:2]] + [cap] + [x.data_ptr() for x in margs[2:]] + [0, 0, 0, 0]
                 rc = lib.merge_compact_tracked(*ptrs, out.data_ptr(), arena.data_ptr(), scratch.data_ptr(), stream)
                 if rc:
                     raise RuntimeError(f"launch failed with cudaError {rc}")

@@ -490,7 +490,27 @@ def test_merge_outputs_arena_layout(count):
             assert view.data_ptr() == addr + 8 * off
         assert bins_l.data_ptr() == addr + 8 * tk.ARENA_BINS
         assert bins_r.data_ptr() == addr + 8 * tk.ARENA_BINS + 4 * 256
-    assert tk.ARENA_SAMP + 4 + 2 * tk.N_PROBES + 1 == tk.ARENA_WORDS == 1 + 256 + 4 + 2 * tk.N_PROBES + 1
+    assert tk.ARENA_PROBES + tk.N_PROBES + tk.GATE_WORDS + tk.SOUT_WORDS + 2 == tk.ARENA_WORDS
+    assert tk.ARENA_WORDS == 256 + 4 + 2 * tk.N_PROBES + 10 + 8 + 2
+
+
+@pytest.mark.parametrize("count", [1, 3])
+def test_gated_arena_views(count):
+    """A gated arena's ``Gated`` words sit at ARENA_GATE in enum Gate's order
+    (merge_compact_tracked.cu), ``sout`` at ARENA_SOUT, and ``host`` is the
+    ten words from ARENA_SOUT: sout, then the n_new and n_aff views the merge
+    returns, so the loop's read is one contiguous copy."""
+    arenas = tk.merge_arenas(count, torch.device("cpu"), gated=True)
+    for addr, (n_new, *_, n_aff, g) in arenas:
+        assert [w.data_ptr() for w in g[: tk.GATE_WORDS]] == [addr + 8 * (tk.ARENA_GATE + i)
+                                                              for i in range(tk.GATE_WORDS)]
+        assert all(w.shape == () and w.dtype == torch.int64 for w in g[: tk.GATE_WORDS])
+        assert g.sout.shape == (8,) and g.sout.data_ptr() == addr + 8 * tk.ARENA_SOUT and g.sout.is_contiguous()
+        assert g.host.shape == (10,) and g.host.data_ptr() == g.sout.data_ptr()
+        assert [w.data_ptr() for w in g.sout_words] == [g.sout.data_ptr() + 8 * i for i in range(8)]
+        assert all(w.shape == () for w in g.sout_words)
+        assert n_new.data_ptr() == g.host[8].data_ptr() and n_aff.data_ptr() == g.host[9].data_ptr()
+        assert addr + 8 * tk.ARENA_WORDS == g.host[9].data_ptr() + 8
 
 
 def test_pooled_items_go_out_once():
