@@ -11,7 +11,7 @@ of ``gpu_bpe_tpu/api.py``), with backend selection:
 ``train_files`` trains from files in streamed mode: the corpus is read,
 pre-tokenized and deduplicated chunk by chunk (``ops.ingest.stream_paths``,
 ``make_stream_chunked``), so host memory stays bounded by the unique-word
-mass plus one chunk, then trained on ``TrainConfig.device`` by ``backend``
+mass plus two chunks, then trained on ``TrainConfig.device`` by ``backend``
 "cuda" or "dist". Progress goes to the package logger (``utils.get_logger``).
 """
 
@@ -133,9 +133,13 @@ def train_files(
 ) -> tuple[BPETokenizer, TrainingResult]:
     """Streamed training from files (directories expand as in
     ``collect_files``): host memory stays bounded by the unique-word mass
-    plus one chunk of ``chunk_bytes``, so corpora of many GB ingest without
+    plus two chunks of ``chunk_bytes``, so corpora of many GB ingest without
     the whole corpus in memory. The stream, hence the merge list, is the one
     ``train`` makes of the same files.
+
+    The job's root span ``train.job`` (``bytes``: corpus bytes, ``symbols``:
+    the stream's unique-word symbols, ``merges``) holds the streamed ingest
+    (``train.ingest``) as well as the training and the tokenizer build.
 
     Streamed mode needs the whole pipeline of word boundaries and dedup on
     the device backends; paragraph shuffle (which needs the whole corpus),
@@ -154,12 +158,12 @@ def train_files(
     from .ops.trainer import resolve_device
 
     device = resolve_device(config.device)
-    stream = make_stream_chunked(stream_paths(collect_files(paths), chunk_bytes))
-    logger.info("streamed ingest: %d unique-word symbols from %d corpus bytes (%.1fx dedup)",
-                stream.n, stream.total_bytes, stream.dedup_ratio)
     if on_progress is None and config.show_progress:
         on_progress = log_progress
     with _profile_ctx(config), span("train.job") as job:
+        stream = make_stream_chunked(stream_paths(collect_files(paths), chunk_bytes))
+        logger.info("streamed ingest: %d unique-word symbols from %d corpus bytes (%.1fx dedup)",
+                    stream.n, stream.total_bytes, stream.dedup_ratio)
         if config.backend == "dist":
             from .parallel import DistributedTrainer, one_rank_group
 
@@ -173,7 +177,7 @@ def train_files(
             result = trainer.train_stream(stream, config.vocab_size, on_progress)
         with span("train.build"):
             tokenizer = BPETokenizer.from_training_result(result, backend="cuda", device=config.device)
-        job.note(merges=len(result.merges), symbols=stream.total_bytes)
+        job.note(bytes=stream.total_bytes, symbols=stream.n, merges=len(result.merges))
     return tokenizer, result
 
 

@@ -12,17 +12,31 @@ C++ library (``ops/native.py``) where it builds, else in numpy
 (``numpy_dedup``, ``StreamAccumulator``'s per-length sets); both give the
 same stream bit for bit. ``stream_paths`` and ``make_stream_chunked`` ingest
 files chunk by chunk with host memory bounded by the unique-word mass plus
-one chunk (``api.train_files``).
+two chunks (``api.train_files``).
+
+The streamed ingest is traced: ``make_stream_chunked`` is a
+``train.ingest`` span (``bytes``, ``chunks``, ``symbols``) holding one
+``train.pretokenize`` span (``bytes``) per chunk and one ``train.dedup``
+span per ``StreamAccumulator.add_chunk`` (``bytes``) and ``finish``
+(``symbols``); the rest of ``train.ingest`` is reading the files and
+carrying the partial word. ``INGEST`` counts what it ingested.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..constants import TOKEN_MASK, WORD_START_BIT
+from ..utils.timing import span
 from . import native
+
+# The streamed ingest's work (``make_stream_chunked``): "chunks" read,
+# "bytes" of corpus (the streams' ``total_bytes``) and unique-word
+# "symbols" (the streams' ``n``). clear() to reset.
+INGEST: Counter = Counter()
 
 
 @dataclass
@@ -205,6 +219,11 @@ class StreamAccumulator:
         self._native = native.NativeAccumulator() if native.native_available() else None
 
     def add_chunk(self, data: bytes | np.ndarray, word_starts: np.ndarray) -> None:
+        with span("train.dedup") as sp:
+            sp.note(bytes=len(data))
+            self._add(data, word_starts)
+
+    def _add(self, data: bytes | np.ndarray, word_starts: np.ndarray) -> None:
         if isinstance(data, (bytes, bytearray)):
             bytes_arr = np.frombuffer(bytes(data), dtype=np.uint8)
         else:
@@ -238,6 +257,12 @@ class StreamAccumulator:
                 self._rows[ln], self._counts[ln] = _unique_rows(merged, weights=mcnt)
 
     def finish(self) -> SymbolStream:
+        with span("train.dedup") as sp:
+            stream = self._finish()
+            sp.note(symbols=stream.n)
+        return stream
+
+    def _finish(self) -> SymbolStream:
         if self._native is not None:
             syms, wts, total_unique = self._native.finish(WORD_START_BIT)
             return SymbolStream(symbols=syms, weights=wts, n=total_unique, total_bytes=self._total)
@@ -315,31 +340,38 @@ def make_stream_chunked(chunks, pre_tokenizer=None) -> SymbolStream:
     into the next chunk, so word boundaries are computed with full context:
     the carry restarts at the last final word start, NFC is idempotent on
     the re-fed normalized carry, and the boundary rules never look left of
-    a word start. Host memory stays bounded by the unique-word mass plus
-    one chunk."""
+    a word start. The last chunk has no text after it, so all its words are
+    final. Host memory stays bounded by the unique-word mass plus two
+    chunks (the one pre-tokenized and the next, read to tell the last)."""
     from ..pretok import PreTokenizer
 
     pt = pre_tokenizer or PreTokenizer()
     acc = StreamAccumulator()
     carry = b""
-    for raw in chunks:
-        data, starts = pt.pre_tokenize_bytes(carry + raw)
-        if len(data) == 0:
-            carry = b""
-            continue
-        ws = np.flatnonzero(starts.astype(bool))
-        ws = ws[ws < len(data) - MARGIN]
-        last = int(ws[-1]) if len(ws) else 0
-        if last > 0:
-            acc.add_chunk(data[:last], starts[:last])
-            carry = bytes(data[last:])
-        else:
-            carry = bytes(data)
-    if carry:
-        data, starts = pt.pre_tokenize_bytes(carry)
-        if len(data):
-            acc.add_chunk(data, starts)
-    return acc.finish()
+    n_chunks = 0
+    with span("train.ingest") as ingest:
+        chunks = iter(chunks)
+        raw = next(chunks, None)
+        while raw is not None:
+            after = next(chunks, None)
+            n_chunks += 1
+            with span("train.pretokenize") as sp:
+                sp.note(bytes=len(carry) + len(raw))
+                data, starts = pt.pre_tokenize_bytes(carry + raw)
+            if after is None:
+                last = len(data)
+            else:
+                ws = np.flatnonzero(starts.astype(bool))
+                ws = ws[ws < len(data) - MARGIN]
+                last = int(ws[-1]) if len(ws) else 0
+                carry = bytes(data[last:])
+            if last > 0:
+                acc.add_chunk(data[:last], starts[:last])
+            raw = after
+        stream = acc.finish()
+        ingest.note(bytes=stream.total_bytes, chunks=n_chunks, symbols=stream.n)
+    INGEST.update(chunks=n_chunks, bytes=stream.total_bytes, symbols=stream.n)
+    return stream
 
 
 def pad_stream(stream: SymbolStream, multiple: int = 1024) -> SymbolStream:
